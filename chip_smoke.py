@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -8,21 +9,43 @@ line):
 
 1. device: the ``nvidia-smi`` name and power limit; TF32 off for cuDNN
    and matmul, so that every comparison below is full f32.
-2. build: compile every CUDA source of the serving path with nvcc.
-3. kernel vs plain: the fused ISP kernel against its plain PyTorch
-   version on the card, at the serving shape (B=32, 256x256: edge and
-   corner tiles included) and at shapes that are not multiples of the
-   tile, with perturbed non-symmetric parameters and inputs that reach
-   both clip bounds. Tolerance 2e-5 abs (tests/test_pallas.py).
-4. serve: 64 synthetic 16-bit DNG mosaics through
+2. build: compile the CUDA sources (``fused_isp_fwd.cu``,
+   ``fused_isp_bwd.cu``) with nvcc, in parallel.
+3. kernel vs plain: the serving kernel against its plain PyTorch
+   version, at the serving shape (B=32, 256x256: edge and corner tiles
+   included) and at shapes that are not multiples of the tile, with
+   perturbed non-symmetric parameters, two cameras and inputs that reach
+   both clip bounds (per-pixel tolerance ``KERNEL_TOL``).
+4. train kernels vs plain, at the same shapes and cameras: the training
+   forward (RGB as in 3 and bitwise equal to the serving kernel's,
+   residuals within ``RES_TOL``), and both backward variants on the noisy
+   inputs and on smoothed ones, each under a positive cotangent and under
+   the mean-zero one that a training-mode output batch norm hands back
+   (the statistical contract ``BWD_*`` against the plain version; on the
+   smooth inputs also ``BWD_F64_*`` against the plain version computed in
+   float64); the two variants within ``VARIANT_TOL`` of each other, and
+   two launches bitwise identical.
+5. serve: 64 synthetic 16-bit DNG mosaics through
    ``Predictor.predict_dir`` at full ResNet-18 width, counting kernel
    launches; then the same batches through a Predictor whose ISP takes
    the plain path, logits within 1e-4 abs.
-5. times: CUDA-event times of the kernel, its plain version and
-   ``Predictor.__call__`` at B=32 and B=256, beside the kernel's bound.
-6. profile: device time by kernel of ``Predictor.__call__`` and the
-   device's idle share (torch.profiler), at B=32 and B=256.
-7. the ``kernels`` line, then the ``ok`` line.
+6. train: ``make_train_step`` at full ResNet-18 width, B=32, for two
+   classifiers (as built, and with perturbed batch norms) and two seeds
+   each: one step through the kernel path, one through the plain path
+   (twice, and once on a nudged input) and one through the plain path in
+   float64, from identical weights, compared (loss, ISP and classifier
+   gradients, running statistics); the kernel step's ISP gradients also
+   against the float64 plain backward on the cotangent that step handed
+   its ISP. Then 5 kernel-path steps, counting launches: every ISP
+   parameter moves. Then the recompute backward as its users call it,
+   ``fused_isp_bwd`` without residuals, on that batch and cotangent.
+7. times: CUDA-event times of each kernel, its plain version and its
+   bound, of ``Predictor.__call__`` and of a train step, at B=32 and
+   B=256.
+8. profile: device time by kernel and the device's idle share of
+   ``Predictor.__call__``, of a train step and of the recompute backward
+   (torch.profiler), at B=32 and B=256.
+9. the ``kernels`` line, then the ``ok`` line.
 """
 
 import copy
@@ -40,10 +63,15 @@ from raw2logit_tpu_torch.data import (MICROSCOPY_CAMERA_PARAMS,
                                       SyntheticRawClassification,
                                       load_image, write_dng)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
-from raw2logit_tpu_torch.kernels import fused_isp, fused_isp_reference
+from raw2logit_tpu_torch.kernels import (
+    PARAM_NAMES, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
+    fused_isp_reference, fused_isp_train, fused_isp_train_reference,
+    unpack_grads)
 from raw2logit_tpu_torch.kernels.build import build
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.serving import Predictor
+from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
+                                          make_train_step)
 
 SEED = 0
 # Fused kernel vs plain version: |kernel - plain| <= KERNEL_TOL + LIN_TOL *
@@ -61,15 +89,86 @@ LOGIT_TOL = 1e-4   # kernel-path vs plain-path logits, TF32 off
 SERVE_IMAGES, SERVE_BATCH, SIZE, BIG_BATCH = 64, 32, 256, 256
 CHECK_SHAPES = ((SERVE_BATCH, SIZE, SIZE), (4, 250, 250), (3, 67, 45))
 
+# Training kernels: residual planes vs their plain versions, abs (deb, s
+# and t come before the gamma curve, so no slope term applies); the
+# residual and recompute backward variants against each other, abs
+# (tests/test_pallas.py:180).
+RES_TOL, VARIANT_TOL = 2e-5, 1e-6
+# Backward kernel vs plain (tests/test_pallas.py:153-159): median |d_raw
+# error| below 1e-3 max|plain|, fewer than 2% of pixels above 1e-2 max,
+# each parameter gradient within 2e-2 max-relative (floor 1e-3). Pixels
+# just above the clip floor amplify float32 rounding by up to ~1e5, so
+# the contract is statistical.
+BWD_MEDIAN, BWD_OUTLIER, BWD_OUTLIER_SHARE, BWD_PARAM = 1e-3, 1e-2, 2e-2, 2e-2
+# Tight limits where few pixels sit near the clip floor (the smooth
+# inputs; in the train phase the inputs inside the clips), which a bug
+# confined to the image border would not pass, though it could pass the
+# statistical contract. d_raw: max |kernel - plain| over max|plain|
+# (BWD_TIGHT_DRAW). Parameter gradients: max-relative (floor 1e-3)
+# against the plain version computed in float64 from the same float32
+# inputs (the witness), within BWD_F64_PARAM or twice the float32 plain
+# version's own distance from it, whichever is larger: a mean-zero
+# cotangent makes them sums that cancel, where float32 itself loses
+# digits. (d_raw is not held to the witness: where a pre-clip value lies
+# within float32 rounding of a clip bound, float32 and float64 take
+# different sides of it, and both float32 routes differ from float64 by
+# a whole gradient term there.)
+BWD_TIGHT_DRAW, BWD_F64_PARAM = 1e-5, 1e-4
+# Train step against the float64 step from identical weights: the kernel
+# path's ISP gradients within BWD_PARAM, its classifier gradients (one
+# vector) within CLF_GRAD_TOL, or within STEP_F64_FACTOR times the
+# farther of the plain path and the nudged plain path from it, whichever
+# is larger (phase_train says why)
+STEP_F64_FACTOR = 2.0
+# Train step, kernel path vs plain path from identical weights: loss abs,
+# classifier gradients max-relative as one vector (phase_train says why),
+# running statistics relative; ISP gradients at BWD_PARAM.
+LOSS_TOL, CLF_GRAD_TOL, STATS_TOL = 1e-5, 1e-3, 1e-5
+TRAIN_LR, TRAIN_STEPS = 1e-5, 5   # bench.py:106; a few steps at B = 32
+# Classifiers of the train-step comparison (train_classifier), and seeds
+CLF_SETUPS, TRAIN_SEEDS = ("as_built", "perturbed"), (0, 1)
+# The ISP parameters' names in the module, by kernel parameter name
+ISP_NAMES = dict(zip(PARAM_NAMES, (
+    "black_level", "debayer.weight", "white_balance", "colour_correction",
+    "sharpening_filter.weight", "gaussian_blur.weight", "gamma_correct")))
+# raw * 0.02 + 0.025: the synthetic mosaics at an exposure where every
+# output of the perturbed microscopy ISP lies inside the clips, between
+# ~0.25 and ~0.91 (phase_train checks it)
+INSIDE_CLIPS = (0.02, 0.025)
+
 # Published peaks (NVIDIA data sheets): device-memory bytes/s and
 # non-tensor f32 operations/s; first matching name wins.
 PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
-# Per pixel the fused ISP must read 4 B of raw and write 12 B of RGB, and
-# do 174 operations: black level 1, debayer 27 FMA (54), YUV matrix 9 FMA
-# (18), sharpen 9 FMA (18), blur 25 FMA (50), YUV->RGB 9 FMA (18), clip
-# 6, gamma 3 multiplies and 6 transcendentals (log, exp per channel).
-BYTES_PER_PIXEL, OPS_PER_PIXEL = 16, 174
+# Bytes each kernel must move and f32 operations it must do, per pixel
+# (an FMA is 2, a transcendental 1).
+# fused_isp_fwd: read raw 4 B, write RGB 12 B; 174 operations: black
+#   level 1, debayer 27 FMA (54), YUV matrix 9 FMA (18), sharpen 9 FMA
+#   (18), blur 25 FMA (50), YUV->RGB 9 FMA (18), clip 6, gamma 3
+#   multiplies and 6 transcendentals (log, exp per channel).
+# fused_isp_fwd_train: the same, and writes 20 B of residuals.
+# fused_isp_bwd_res: read raw 4, g 12, res 20 B, write d_raw 4 B; 386
+#   operations: U, V 6 FMA (12); per channel pre-clip 3 FMA (6), clip 2,
+#   log and exp 2, slope and cotangent 3, clip mask 3, d_gamma 5, the
+#   transposed YUV->RGB 3 FMA (6), so 27 x 3 = 81; blur adjoint 25 FMA
+#   (50); sharpen adjoint 9 FMA (18); Y 3 FMA (6); A^T 9 FMA (18); debayer
+#   adjoint 27 FMA (54); partials dK_blur 25, dK_sharp 9, dA 9 and
+#   dK_debayer 27 FMA (140), d_black_level 1.
+# fused_isp_bwd: reads no residuals (20 B) and recomputes deb, s and t:
+#   black level 1, debayer 54, Y 6, sharpen 18, blur 50, so 515.
+KERNEL_COST = {"fused_isp_fwd": (16, 174), "fused_isp_fwd_train": (36, 174),
+               "fused_isp_bwd_res": (40, 386), "fused_isp_bwd": (20, 515)}
+# The TPU kernel each CUDA kernel replaces, and its source.
+KERNELS = {
+    "fused_isp_fwd": ("raw2logit_tpu/pallas/fused_isp.py:135",
+                      "raw2logit_tpu_torch/csrc/fused_isp_fwd.cu"),
+    "fused_isp_fwd_train": ("raw2logit_tpu/pallas/fused_isp.py:143",
+                            "raw2logit_tpu_torch/csrc/fused_isp_fwd.cu"),
+    "fused_isp_bwd_res": ("raw2logit_tpu/pallas/fused_isp_bwd.py:249",
+                          "raw2logit_tpu_torch/csrc/fused_isp_bwd.cu"),
+    "fused_isp_bwd": ("raw2logit_tpu/pallas/fused_isp_bwd.py:201",
+                      "raw2logit_tpu_torch/csrc/fused_isp_bwd.cu"),
+}
 
 
 def emit(obj):
@@ -88,12 +187,26 @@ def peaks(kind):
     return "H100 (assumed)", 3.35e12, 67e12
 
 
-def bound(kind, n_pixels):
-    """Least time (ms) and what bounds it for the fused ISP on n pixels."""
+def bound(kind, n_pixels, kernel="fused_isp_fwd"):
+    """Least time (ms) and what bounds it for ``kernel`` on n pixels."""
     _, bw, ops = peaks(kind)
-    t_bytes = n_pixels * BYTES_PER_PIXEL / bw * 1e3
-    t_ops = n_pixels * OPS_PER_PIXEL / ops * 1e3
+    bytes_pp, ops_pp = KERNEL_COST[kernel]
+    t_bytes = n_pixels * bytes_pp / bw * 1e3
+    t_ops = n_pixels * ops_pp / ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def reset_counts():
+    fused_isp.launches = fused_isp_train.launches = 0
+    fused_isp_bwd.launches = fused_isp_bwd.launches_res = 0
+
+
+def counts():
+    """Launches of each kernel since ``reset_counts``."""
+    return {"fused_isp_fwd": fused_isp.launches,
+            "fused_isp_fwd_train": fused_isp_train.launches,
+            "fused_isp_bwd_res": fused_isp_bwd.launches_res,
+            "fused_isp_bwd": fused_isp_bwd.launches}
 
 
 def processor(device, use_kernel, camera=MICROSCOPY_CAMERA_PARAMS,
@@ -150,6 +263,87 @@ def test_mosaics(shape, seed=SEED):
     return torch.as_tensor(raw, dtype=torch.float32)
 
 
+def smooth_mosaics(shape, seed=SEED):
+    """Mosaics smoothed by a 7x7 box filter into [0.25, 0.75], as
+    tests/test_pallas.py:123-125 does, at exposures from 0.05 to 0.4: few
+    pixels land near the clip floor, and with either camera some images
+    stay inside both clips."""
+    rng = np.random.default_rng((seed, 7) + tuple(shape))
+    raw = torch.as_tensor(rng.uniform(0.0, 1.0, shape), dtype=torch.float32)
+    x = torch.nn.functional.avg_pool2d(torch.nn.functional.pad(
+        raw[:, None], (3, 3, 3, 3), mode="reflect"), 7, stride=1)[:, 0]
+    x = 0.25 + 0.5 * (x - x.min()) / (x.max() - x.min() + 1e-9)
+    return x * torch.linspace(0.05, 0.4, shape[0])[:, None, None]
+
+
+def max_rel(got, want, floor=1e-30):
+    """max |got - want| / max(max |want|, floor)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 floor)
+
+
+def witness(x, params, g):
+    """The plain backward computed in float64 from the same float32
+    inputs: (d_raw, {name: gradient}), both float64."""
+    d, scal = fused_isp_bwd_reference(x, params, g, torch.float64)
+    return d, unpack_grads(scal, {k: v.detach().double()
+                                  for k, v in params.items()})
+
+
+def witness_err(d_raw, grads, wit, scale):
+    """Distance of a backward from the float64 witness: max |d_raw error|
+    over ``scale``, and the largest max-relative parameter error."""
+    d_64, grads_64 = wit
+    return {"d_raw_max_abs_err_over_scale":
+            float((d_raw.double() - d_64).abs().max()) / scale,
+            "param_max_rel_err": max(max_rel(grads[k].double(), grads_64[k],
+                                             1e-3) for k in grads_64)}
+
+
+def bwd_agreement(run, plain, wit, tight):
+    """A backward ``run`` = (d_raw, grads) against the float32 plain
+    version under the contract (BWD_*), and its distance from the float64
+    witness beside the plain version's own; with ``tight`` the tight
+    limits (BWD_TIGHT_DRAW, BWD_F64_PARAM) must hold too. Returns
+    (statistics, whether they hold)."""
+    (d_raw, grads), (d_ref, grads_ref) = run, plain
+    scale = float(d_ref.abs().max())
+    check(scale > 0, "the backward's input has pixels inside the clips")
+    err = (d_raw - d_ref).abs()
+    stats = {
+        "d_raw_scale": scale, "d_raw_max_abs_err": float(err.max()),
+        "d_raw_median_err_over_scale": float(err.median()) / scale,
+        "d_raw_outlier_share": float((err > BWD_OUTLIER * scale)
+                                     .float().mean()),
+        "param_max_rel_err": {k: max_rel(grads[k], grads_ref[k], 1e-3)
+                              for k in grads_ref},
+        "vs_float64": witness_err(d_raw, grads, wit, scale),
+        "plain_vs_float64": witness_err(d_ref, grads_ref, wit, scale)}
+    ok = (stats["d_raw_median_err_over_scale"] < BWD_MEDIAN
+          and stats["d_raw_outlier_share"] < BWD_OUTLIER_SHARE
+          and max(stats["param_max_rel_err"].values()) < BWD_PARAM)
+    if tight:
+        ok = (ok and stats["d_raw_max_abs_err"] <= BWD_TIGHT_DRAW * scale
+              and stats["vs_float64"]["param_max_rel_err"] <= max(
+                  BWD_F64_PARAM,
+                  2 * stats["plain_vs_float64"]["param_max_rel_err"]))
+    return stats, ok
+
+
+def bn_cotangent(o, seed=SEED):
+    """The cotangent that a training-mode output batch norm hands the ISP:
+    its backward of a seeded normal upstream gradient. It has zero mean
+    per channel, so the parameter gradients are sums that cancel."""
+    gen = torch.Generator(o.device).manual_seed(seed)
+    up = torch.randn(o.shape, device=o.device, generator=gen)
+    x = o.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = torch.nn.functional.batch_norm(x, None, None, training=True,
+                                             eps=1e-5)
+        (g,) = torch.autograd.grad(out, x, up)
+    return g.contiguous()
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,7 +364,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = build(["fused_isp_fwd"])
+    report = build(["fused_isp_fwd", "fused_isp_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": report})
 
@@ -221,6 +415,342 @@ def phase_kernel_vs_plain(device, shapes=CHECK_SHAPES):
     return worst
 
 
+def phase_train_kernels_vs_plain(device, shapes=CHECK_SHAPES):
+    """The training forward and both backward variants against their plain
+    versions, for two cameras. Returns the largest |kernel - plain| of
+    each: the forward's RGB, and d_raw on the smooth inputs."""
+    worst = dict.fromkeys(("fused_isp_fwd_train", "fused_isp_bwd_res",
+                           "fused_isp_bwd"), 0.0)
+    for cam_name, camera in (("mild", MILD_CAMERA),
+                             ("microscopy", MICROSCOPY_CAMERA_PARAMS)):
+        proc = processor(device, use_kernel=True, camera=camera)
+        params = proc.kernel_params()
+        gamma = float(proc.gamma_correct.detach())
+        floor = float(np.exp(np.log(np.float32(1e-5)) / gamma))
+        for shape in shapes:
+            raw = test_mosaics(shape).to(device)
+            with torch.no_grad():
+                out, res = fused_isp_train(raw, params)
+                served = fused_isp(raw, params)
+                want, want_res = fused_isp_train_reference(raw, params)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            ratio = float(((out - want).abs().double()
+                           / kernel_tolerance(want, gamma)).max())
+            res_err = [float((res[:, k] - want_res[:, k]).abs().max())
+                       for k in range(5)]
+            emit({"phase": "train_kernels_vs_plain", "kernel":
+                  "fused_isp_fwd_train", "camera": cam_name,
+                  "shape": list(shape), "max_abs_err": err,
+                  "max_err_over_tol": ratio,
+                  "res_max_abs_err_deb0_deb1_deb2_s_t": res_err,
+                  "bitwise_equal_to_serving": bool(torch.equal(out, served))})
+            check(torch.equal(out, served), "training forward's RGB equals "
+                                            "the serving kernel's bitwise")
+            check(ratio <= 1.0, f"{cam_name} {shape}: training forward vs "
+                                f"plain {ratio} x the tolerance")
+            check(max(res_err) <= RES_TOL, f"residuals vs plain {res_err}")
+            worst["fused_isp_fwd_train"] = max(
+                worst["fused_isp_fwd_train"], err)
+            for inputs, x in (("noisy", raw),
+                              ("smooth", smooth_mosaics(shape).to(device))):
+                with torch.no_grad():
+                    o, r = fused_isp_train(x, params)
+                frac_floor = float((o <= floor * (1 + 1e-5)).float().mean())
+                for cot, g in (("positive", (o * 0.5 + 0.1).contiguous()),
+                               ("bn_backward", bn_cotangent(o))):
+                    with torch.no_grad():
+                        runs = {"res": fused_isp_bwd(x, params, g, r),
+                                "recompute": fused_isp_bwd(x, params, g),
+                                "res_again": fused_isp_bwd(x, params, g, r)}
+                    d_ref, scal = fused_isp_bwd_reference(x, params, g)
+                    plain = d_ref, unpack_grads(scal, params)
+                    wit = witness(x, params, g)
+                    torch.cuda.synchronize()
+                    for variant, name in (("res", "fused_isp_bwd_res"),
+                                          ("recompute", "fused_isp_bwd")):
+                        stats, ok = bwd_agreement(runs[variant], plain, wit,
+                                                  tight=inputs == "smooth")
+                        emit({"phase": "train_kernels_vs_plain",
+                              "kernel": name, "camera": cam_name,
+                              "shape": list(shape), "inputs": inputs,
+                              "cotangent": cot,
+                              "frac_at_clip_floor": frac_floor, **stats})
+                        check(ok, f"{name} {cam_name} {shape} {inputs} "
+                                  f"{cot}: backward vs plain {stats}")
+                        if inputs == "smooth":
+                            worst[name] = max(worst[name],
+                                              stats["d_raw_max_abs_err"])
+                    (d_a, g_a), (d_b, g_b), (d_c, g_c) = (
+                        runs["res"], runs["recompute"], runs["res_again"])
+                    variant_err = max([float((d_a - d_b).abs().max())] + [
+                        float((g_a[k] - g_b[k]).abs().max()) for k in g_a])
+                    same = torch.equal(d_a, d_c) and all(
+                        torch.equal(g_a[k], g_c[k]) for k in g_a)
+                    emit({"phase": "train_kernels_vs_plain",
+                          "camera": cam_name, "shape": list(shape),
+                          "inputs": inputs, "cotangent": cot,
+                          "res_vs_recompute_max_abs": variant_err,
+                          "res_run_to_run_identical": same})
+                    check(variant_err <= VARIANT_TOL, f"backward variants "
+                                                      f"differ by "
+                                                      f"{variant_err}")
+                    check(same, "two launches of the residual backward give "
+                                "identical gradients")
+    return worst
+
+
+def train_classifier(device, setup="as_built", seed=SEED):
+    """Full-width ResNet-18 with 9 classes, seeded on the device:
+    ``as_built`` is ``resnet_model``'s init, where the last batch norm of
+    every block starts at zero scale (so the first step's gradient skips
+    most residual branches); ``perturbed`` is ``classifier``, where every
+    conv reaches the logits."""
+    if setup == "perturbed":
+        return classifier(device, seed).train()
+    return resnet_model("resnet18", fc_out_features=9, device=device,
+                        generator=torch.Generator(device).manual_seed(seed))
+
+
+def train_setup(device, batch, size=SIZE):
+    """Full-width train inputs: labelled synthetic mosaics on the device,
+    the perturbed microscopy ISP (fused-kernel path, BN output) and the
+    ResNet-18 as built."""
+    ds = SyntheticRawClassification(n=batch, h=size, w=size, seed=SEED)
+    raw = torch.as_tensor(np.stack([ds[i][0] for i in range(batch)]),
+                          dtype=torch.float32, device=device)
+    y = torch.as_tensor([ds[i][1] for i in range(batch)], device=device)
+    proc = processor(device, use_kernel=True).train()
+    return raw, y, proc, train_classifier(device)
+
+
+def train_copy(cfg, proc, clf, use_kernel=True, dtype=torch.float32):
+    """Deep copies of the modules, in ``dtype``, with their train state
+    and step."""
+    p, c = copy.deepcopy(proc).to(dtype), copy.deepcopy(clf).to(dtype)
+    p.use_kernel = use_kernel
+    return p, c, create_train_state(cfg, p, c), make_train_step(cfg, p, c)
+
+
+def capture_cotangent(p):
+    """A dict that each step of processor ``p`` fills with the cotangent
+    of the ISP's output (the output batch norm's input) under "g"."""
+    seen = {}
+
+    def hook(module, args):
+        if args[0].requires_grad:
+            args[0].register_hook(lambda g: seen.__setitem__("g", g))
+    p.batch_norm.register_forward_pre_hook(hook)
+    return seen
+
+
+def grads_and_stats(p, c):
+    """ISP gradients, classifier gradients, BN running statistics."""
+    return ({n: t.grad for n, t in p.named_parameters()},
+            {n: t.grad for n, t in c.named_parameters()},
+            {f"{m}.{n}": b for m, mod in (("isp", p), ("clf", c))
+             for n, b in mod.named_buffers() if "running" in n})
+
+
+def step_agreement(run, ref):
+    """Train-step agreement of ``run`` with ``ref`` (each
+    ``(grads_and_stats, loss)``): loss, ISP gradients per parameter,
+    classifier gradients as one vector and its worst tensor, running
+    statistics."""
+    (isp_g, clf_g, stats), loss = run
+    (isp_r, clf_r, stats_r), loss_r = ref
+    names = list(clf_g)
+    flat = torch.cat([clf_g[n].flatten().double() for n in names])
+    flat_r = torch.cat([clf_r[n].flatten().double() for n in names])
+    worst = max((max_rel(clf_g[n].double(), clf_r[n].double()), n)
+                for n in names)
+    return {"loss_abs_err": abs(loss - loss_r),
+            "isp_grad_max_rel_err": {
+                n: max_rel(isp_g[n].double(), isp_r[n].double(), 1e-3)
+                for n in isp_g},
+            "clf_grad_max_rel_err": max_rel(flat, flat_r),
+            "clf_worst_tensor": [worst[1], worst[0]],
+            "running_stats_max_rel_err": max(
+                max_rel(stats[n].double(), stats_r[n].double())
+                for n in stats)}
+
+
+def phase_train(device, batch=SERVE_BATCH, steps=TRAIN_STEPS,
+                setups=CLF_SETUPS, seeds=TRAIN_SEEDS):
+    """Train steps through the kernel path against the plain path from
+    identical weights; then ``steps`` kernel-path steps; then the
+    recompute backward as its users call it. Returns the launch counts
+    of the ``steps`` steps and of the recompute backward.
+
+    Each comparison runs the kernel path, the plain path twice, the plain
+    path on its input times 1 + 1e-7 N(0, 1) (``nudged``) and the plain
+    path in float64 (the witness), for each classifier of ``setups``, each
+    seed of ``seeds`` and two exposures: the synthetic mosaics as they
+    are, where many outputs of the ISP sit at 1 and some at the clip
+    floor, and the same mosaics at ``INSIDE_CLIPS``, where every output
+    lies inside the clips.
+
+    A float32 train step is ill-conditioned: the kernel and plain forwards
+    differ by float32 rounding (KERNEL_TOL), and the classifier's backward
+    amplifies such differences in the cotangent it hands the ISP, the
+    more so when every residual branch carries gradient (``perturbed``).
+    So the phase holds the kernels where they act alone: the kernel step's
+    ISP gradients against the float64 plain backward on the cotangent that
+    step gave its ISP (as BWD_F64_PARAM inside the clips, BWD_PARAM where
+    clips are reached). It holds the kernel step against the float64 step
+    no further than the float32 plain path lands itself (STEP_F64_FACTOR),
+    for every classifier, as well as the loss and running statistics
+    against the plain path. The ISP gradients (BWD_PARAM, the TPU
+    kernel's contract) and the classifier gradients (CLF_GRAD_TOL, as one
+    vector) of the two paths are held to each other only for the
+    classifier as built, where the step is well-conditioned: with
+    perturbed batch norms the nudge alone moves them further (printed as
+    ``spread``)."""
+    raw, y, proc, clf = train_setup(device, batch)
+    params = proc.kernel_params()
+    gamma = float(proc.gamma_correct.detach())
+    cfg = TrainConfig(lr=TRAIN_LR)
+    main_cotangent = None
+    for setup in setups:
+        for seed in seeds:
+            net = clf if (setup, seed) == ("as_built", SEED) else \
+                train_classifier(device, setup, seed)
+            gen = torch.Generator(device).manual_seed(seed)
+            for inputs, x in (("synthetic", raw),
+                              ("inside_clips", raw * INSIDE_CLIPS[0]
+                               + INSIDE_CLIPS[1])):
+                nudged = x * (1 + 1e-7 * torch.randn(
+                    x.shape, device=device, generator=gen))
+                with torch.no_grad():
+                    rgb = fused_isp(x, params)
+                shares = {"frac_at_one": float((rgb >= 1.0).float().mean()),
+                          "frac_at_clip_floor": float(
+                              (rgb <= np.exp(np.log(1e-5) / gamma)
+                               * (1 + 1e-5)).float().mean())}
+                check(inputs != "inside_clips" or not any(shares.values()),
+                      f"every output inside the clips {shares}")
+                runs = {}
+                for name, use_kernel, x_in, dtype in (
+                        ("kernel", True, x, torch.float32),
+                        ("plain", False, x, torch.float32),
+                        ("plain_again", False, x, torch.float32),
+                        ("nudged", False, nudged, torch.float32),
+                        ("float64", False, x, torch.float64)):
+                    p, c, state, step = train_copy(cfg, proc, net,
+                                                   use_kernel, dtype)
+                    seen = capture_cotangent(p)
+                    loss = float(step(state, x_in.to(dtype), y)["loss"])
+                    runs[name] = grads_and_stats(p, c), loss
+                    if name == "kernel":
+                        g = seen["g"]
+                _, grads_64 = witness(x, params, g)
+                _, scal = fused_isp_bwd_reference(x, params, g)
+                plain_bwd = unpack_grads(scal, params)
+                isp_k = runs["kernel"][0][0]
+                same_cot = {
+                    "kernel_step": max(max_rel(isp_k[ISP_NAMES[k]].double(),
+                                               grads_64[k], 1e-3)
+                                       for k in grads_64),
+                    "plain_bwd_f32": max(max_rel(plain_bwd[k].double(),
+                                                 grads_64[k], 1e-3)
+                                         for k in grads_64)}
+                agree = step_agreement(runs["kernel"], runs["plain"])
+                vs_f64 = {name: step_agreement(runs[name], runs["float64"])
+                          for name in ("kernel", "plain", "plain_again",
+                                       "nudged")}
+                f64_errs = {name: (max(v["isp_grad_max_rel_err"].values()),
+                                   v["clf_grad_max_rel_err"])
+                            for name, v in vs_f64.items()}
+                emit({"phase": "train_step_vs_plain", "classifier": setup,
+                      "seed": seed, "inputs": inputs, **shares,
+                      "batch": batch, "loss": runs["kernel"][1],
+                      "loss_plain": runs["plain"][1], **agree,
+                      "spread": {
+                          name: step_agreement(runs[name], runs["plain"])
+                          for name in ("plain_again", "nudged")},
+                      "vs_float64": {
+                          name: {"isp": f64_errs[name][0],
+                                 "clf": f64_errs[name][1],
+                                 "loss": v["loss_abs_err"]}
+                          for name, v in vs_f64.items()},
+                      "isp_grads_vs_float64_bwd_same_cotangent": same_cot,
+                      "cotangent_abs_max": float(g.abs().max()),
+                      "cotangent_channel_mean_over_abs_mean": [
+                          float(g[:, ch].mean() / g[:, ch].abs().mean())
+                          for ch in range(3)]})
+                tag = f"{setup} seed {seed} {inputs}"
+                check(agree["loss_abs_err"] <= LOSS_TOL, f"{tag}: loss")
+                check(agree["running_stats_max_rel_err"] <= STATS_TOL,
+                      f"{tag}: running statistics "
+                      f"{agree['running_stats_max_rel_err']}")
+                limit = (max(BWD_F64_PARAM, 2 * same_cot["plain_bwd_f32"])
+                         if inputs == "inside_clips" else BWD_PARAM)
+                check(same_cot["kernel_step"] <= limit,
+                      f"{tag}: the kernel step's ISP gradients vs the "
+                      f"float64 backward on its cotangent {same_cot}")
+                k_isp, k_clf = f64_errs["kernel"]
+                far_isp = max(f64_errs[n][0] for n in ("plain", "nudged"))
+                far_clf = max(f64_errs[n][1] for n in ("plain", "nudged"))
+                check(k_isp <= max(BWD_PARAM, STEP_F64_FACTOR * far_isp)
+                      and k_clf <= max(CLF_GRAD_TOL,
+                                       STEP_F64_FACTOR * far_clf),
+                      f"{tag}: kernel step vs the float64 step (ISP, "
+                      f"classifier) {f64_errs}")
+                if setup == "as_built":
+                    check(max(agree["isp_grad_max_rel_err"].values())
+                          <= BWD_PARAM,
+                          f"{tag}: ISP gradients "
+                          f"{agree['isp_grad_max_rel_err']}")
+                    check(agree["clf_grad_max_rel_err"] <= CLF_GRAD_TOL,
+                          f"{tag}: classifier gradients "
+                          f"{agree['clf_grad_max_rel_err']}")
+                if (setup, seed, inputs) == ("as_built", SEED, "synthetic"):
+                    main_cotangent = g, isp_k
+                del runs, g, grads_64
+
+    p, c, state, step = train_copy(cfg, proc, clf)
+    before = {n: t.detach().clone() for n, t in p.named_parameters()}
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, raw, y)["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    main = counts()
+    losses = [float(v) for v in losses]
+    moved = {n: not torch.equal(before[n], t) for n, t in
+             p.named_parameters()}
+    emit({"phase": "train", "batch": batch, "steps": steps,
+          "seconds": seconds, "losses": losses, "isp_params_moved": moved,
+          "launches": main})
+    check(all(np.isfinite(losses)), "finite losses")
+    check(all(moved.values()), f"every ISP parameter moved {moved}")
+    check(main == {"fused_isp_fwd": 0, "fused_isp_fwd_train": steps,
+                   "fused_isp_bwd_res": steps, "fused_isp_bwd": 0},
+          f"main-path launches {main}")
+
+    # The recompute backward (no training path runs it, as in the JAX
+    # package): fused_isp_bwd without residuals on the main path's batch
+    # and the cotangent its first step gave the ISP. Its gradients are the
+    # residual backward's of that step.
+    g, isp_k = main_cotangent
+    reset_counts()
+    d_raw, grads = fused_isp_bwd(raw, params, g)
+    torch.cuda.synchronize()
+    recompute = counts()
+    diff = max(float((grads[k] - isp_k[ISP_NAMES[k]]).abs().max())
+               for k in grads)
+    emit({"phase": "isp_backward_recompute", "batch": batch,
+          "launches": recompute, "vs_train_step_max_abs": diff})
+    check(recompute == {"fused_isp_fwd": 0, "fused_isp_fwd_train": 0,
+                        "fused_isp_bwd_res": 0, "fused_isp_bwd": 1},
+          f"recompute-path launches {recompute}")
+    check(bool(torch.isfinite(d_raw).all()) and d_raw.shape == raw.shape,
+          "finite d_raw of the input's shape")
+    check(diff <= VARIANT_TOL, f"recompute backward vs the train step's "
+                               f"ISP gradients {diff}")
+    return main, recompute
+
+
 def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
                 batch=SERVE_BATCH):
     proc = processor(device, use_kernel=True)
@@ -234,12 +764,16 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
             write_dng(os.path.join(img_dir, f"img_{i:03d}.dng"), mosaic)
         pred = Predictor(proc, clf, classes=[f"c{i}" for i in range(9)],
                          device=device)
-        fused_isp.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = pred.predict_dir(img_dir, batch_size=batch,
                                out_path=os.path.join(tmp, "pred.jsonl"))
         seconds = time.perf_counter() - t0
-        launches = fused_isp.launches
+        launches = counts()
+        check(launches["fused_isp_fwd_train"] == launches["fused_isp_bwd"]
+              == launches["fused_isp_bwd_res"] == 0,
+              f"serving launches only the serving kernel: {launches}")
+        launches = launches["fused_isp_fwd"]
         with open(out) as fh:
             records = [json.loads(line) for line in fh]
         check(len(records) == n_images, f"{len(records)} records")
@@ -284,7 +818,20 @@ def cuda_ms(fn, inputs, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(device, kind, pred):
+def train_runner(device, batch, use_kernel=True):
+    """A train step at ``batch`` through the kernel path (or the plain
+    path): a callable taking and ignoring one argument (for
+    ``cuda_ms``)."""
+    raw, y, proc, clf = train_setup(device, batch)
+    _, _, state, step = train_copy(TrainConfig(lr=TRAIN_LR), proc, clf,
+                                   use_kernel)
+    return lambda _: step(state, raw, y)
+
+
+def phase_times(device, kind, pred, trains):
+    """CUDA-event ms of each kernel's wrapper and its plain version beside
+    the kernel's bound, of ``Predictor.__call__`` and of a train step
+    (and of the plain path's train step), at B = 32 and B = 256."""
     params = processor(device, use_kernel=True).kernel_params()
     rows = {}
     for b in (SERVE_BATCH, BIG_BATCH):
@@ -292,54 +839,134 @@ def phase_times(device, kind, pred):
         raws = [test_mosaics((b, SIZE, SIZE), seed=SEED + i).to(device)
                 for i in range(n_inputs)]
         with torch.no_grad():
-            k_ms = cuda_ms(lambda x: fused_isp(x, params), raws, 50)
-            p_ms = cuda_ms(lambda x: fused_isp_reference(x, params), raws,
-                           10)
+            fwd = [fused_isp_train(x, params) for x in raws]
+            bwd_in = [(x, (o * 0.5 + 0.1).contiguous(), r)
+                      for x, (o, r) in zip(raws, fwd)]
+            del fwd
+            timed = {
+                "fused_isp_fwd": (
+                    cuda_ms(lambda x: fused_isp(x, params), raws, 50),
+                    cuda_ms(lambda x: fused_isp_reference(x, params), raws,
+                            10)),
+                "fused_isp_fwd_train": (
+                    cuda_ms(lambda x: fused_isp_train(x, params), raws, 50),
+                    cuda_ms(lambda x: fused_isp_train_reference(x, params),
+                            raws, 10)),
+                "fused_isp_bwd_res": (
+                    cuda_ms(lambda a: fused_isp_bwd(a[0], params, a[1], a[2]),
+                            bwd_in, 50),
+                    cuda_ms(lambda a: fused_isp_bwd_reference(a[0], params,
+                                                              a[1]),
+                            bwd_in, 10)),
+                "fused_isp_bwd": (
+                    cuda_ms(lambda a: fused_isp_bwd(a[0], params, a[1]),
+                            bwd_in, 50),
+                    None)}
+        # the recompute variant computes the residual one's function
+        timed["fused_isp_bwd"] = (timed["fused_isp_bwd"][0],
+                                  timed["fused_isp_bwd_res"][1])
+        kernels = {}
+        for name, (k_ms, p_ms) in timed.items():
+            b_ms, b_by = bound(kind, b * SIZE * SIZE, name)
+            kernels[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
         s_ms = cuda_ms(pred, raws, 10)
-        b_ms, b_by = bound(kind, b * SIZE * SIZE)
-        rows[b] = {"batch": b, "kernel_ms": k_ms, "plain_ms": p_ms,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "predictor_ms": s_ms, "predictor_imgs_per_s":
-                   b / s_ms * 1e3}
+        t_ms = cuda_ms(trains[b], [None, None], 10)
+        t_plain_ms = cuda_ms(train_runner(device, b, use_kernel=False),
+                             [None, None], 10)
+        rows[b] = {"batch": b, "kernels": kernels, "predictor_ms": s_ms,
+                   "predictor_imgs_per_s": b / s_ms * 1e3,
+                   "train_step_ms": t_ms,
+                   "train_imgs_per_s": b / t_ms * 1e3,
+                   "plain_path_train_step_ms": t_plain_ms}
         emit({"phase": "times", "shape": [b, SIZE, SIZE], **rows[b]})
-        del raws
+        del raws, bwd_in
     return rows
 
 
-def phase_profile(device, pred, calls=5):
-    """Device time by kernel over ``calls`` calls of ``Predictor.__call__``
-    (torch.profiler), and the device's idle share of the wall time.
-    Returns {batch: device ms of one fused ISP launch}."""
+def busy_ms(prof, calls):
+    """Device ms per call during which at least one kernel ran: the union
+    of the kernels' intervals (a sum would count overlapping kernels
+    twice)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3 / calls
+
+
+def profile_calls(fn, arg, calls):
+    """Device ms by kernel per call of ``fn(arg)`` (torch.profiler, after
+    3 warm-up calls), the device's busy ms per call and the wall ms per
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    isp = {}
-    for b in (SERVE_BATCH, BIG_BATCH):
-        raw = test_mosaics((b, SIZE, SIZE)).to(device)
-        for _ in range(3):
-            pred(raw)
+    for _ in range(3):
+        fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(arg)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                pred(raw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        kernels = sorted(
-            ((e.self_device_time_total / 1e3 / calls, e.key, e.count // calls)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            reverse=True)
-        busy_ms = sum(k[0] for k in kernels)
-        isp_ms = sum(k[0] for k in kernels if "fused_isp_fwd" in k[1])
-        emit({"phase": "profile", "batch": b, "wall_ms": wall_ms,
-              "device_busy_ms": busy_ms,
-              "device_idle_share": 1 - busy_ms / wall_ms,
-              "fused_isp_device_ms": isp_ms,
-              "top_kernels_ms": [[k[1][:70], k[0], k[2]]
-                                 for k in kernels[:8]]})
-        check(isp_ms > 0, "the profile shows the fused ISP kernel")
-        isp[b] = isp_ms
-    return isp
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3 / calls, e.key, e.count // calls)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        reverse=True)
+    return kernels, busy_ms(prof, calls), wall_ms
+
+
+# Profile keys of the kernels (template instances of the two sources).
+PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false>",
+                "fused_isp_fwd_train": "fused_isp_fwd_kernel<true>",
+                "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
+                "fused_isp_bwd": "fused_isp_bwd_kernel<false>"}
+
+
+def phase_profile(device, pred, trains, calls=5):
+    """Device time by kernel of ``Predictor.__call__``, of a train step and
+    of the recompute backward, and the device's idle share of the wall
+    time, at B = 32 and B = 256. Returns {(what, batch): {kernel: device
+    ms per call}}."""
+    params = processor(device, use_kernel=True).kernel_params()
+
+    def recompute_bwd(a):
+        return fused_isp_bwd(a[0], params, a[1])
+
+    found = {}
+    for what, fn in (("serve", pred), ("train", None),
+                     ("bwd_recompute", recompute_bwd)):
+        for b in (SERVE_BATCH, BIG_BATCH):
+            arg = test_mosaics((b, SIZE, SIZE)).to(device)
+            if what == "bwd_recompute":
+                with torch.no_grad():
+                    arg = arg, (fused_isp(arg, params) * 0.5 + 0.1)
+            kernels, busy, wall_ms = profile_calls(fn or trains[b], arg,
+                                                   calls)
+            ours = {name: sum(k[0] for k in kernels if key in k[1])
+                    for name, key in PROFILE_KEYS.items()}
+            ours = {name: ms for name, ms in ours.items() if ms > 0}
+            emit({"phase": "profile", "what": what, "batch": b,
+                  "wall_ms": wall_ms, "device_busy_ms": busy,
+                  "kernel_ms_sum": sum(k[0] for k in kernels),
+                  "device_idle_share": 1 - busy / wall_ms,
+                  "port_kernels_device_ms": ours,
+                  "top_kernels_ms": [[k[1][:70], k[0], k[2]]
+                                     for k in kernels[:10]]})
+            want = {"serve": ("fused_isp_fwd",),
+                    "train": ("fused_isp_fwd_train", "fused_isp_bwd_res"),
+                    "bwd_recompute": ("fused_isp_bwd",)}[what]
+            check(all(n in ours for n in want),
+                  f"the {what} profile shows {want}")
+            found[what, b] = ours
+            del arg
+    return found
 
 
 def main():
@@ -350,23 +977,36 @@ def main():
     device = torch.device("cuda")
     smi, kind = phase_device()
     phase_build()
-    max_err = phase_kernel_vs_plain(device)
-    launches, pred = phase_serve(device)
-    rows = phase_times(device, kind, pred)
-    isp_device_ms = phase_profile(device, pred)
-    r = rows[SERVE_BATCH]
-    print(json.dumps({"kernels": [{
-        "name": "fused_isp_fwd", "route": "cuda",
-        "source": "raw2logit_tpu_torch/csrc/fused_isp_fwd.cu",
-        "replaces": "raw2logit_tpu/pallas/fused_isp.py:135",
-        "launches": launches, "max_abs_err": max_err,
-        # ms: CUDA events around the wrapper call (its parameter packing
-        # included); device_ms: the kernel alone, from the profile
-        "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
-        "device_ms": isp_device_ms[SERVE_BATCH],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
-        "shape": [SERVE_BATCH, SIZE, SIZE], "card": smi}]}), flush=True)
+    max_err = {"fused_isp_fwd": phase_kernel_vs_plain(device),
+               **phase_train_kernels_vs_plain(device)}
+    serve_launches, pred = phase_serve(device)
+    launches = {"fused_isp_fwd": serve_launches}
+    main_path, recompute = phase_train(device)
+    launches.update(fused_isp_fwd_train=main_path["fused_isp_fwd_train"],
+                    fused_isp_bwd_res=main_path["fused_isp_bwd_res"],
+                    fused_isp_bwd=recompute["fused_isp_bwd"])
+    trains = {b: train_runner(device, b) for b in (SERVE_BATCH, BIG_BATCH)}
+    rows = phase_times(device, kind, pred, trains)
+    device_ms = phase_profile(device, pred, trains)
+    entries = []
+    for name, (replaces, source) in KERNELS.items():
+        r = rows[SERVE_BATCH]["kernels"][name]
+        where = {"fused_isp_fwd": "serve",
+                 "fused_isp_bwd": "bwd_recompute"}.get(name, "train")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name],
+            # ms: CUDA events around the wrapper call (parameter packing,
+            # and for the backward the partials' sum and unpacking,
+            # included); device_ms: the kernel alone, from the profile of
+            # the path that runs it
+            "ms": r["ms"],
+            "device_ms": device_ms[where, SERVE_BATCH].get(name),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": [SERVE_BATCH, SIZE, SIZE], "card": smi})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,10 @@
 // Fused raw->RGB ISP forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel raw2logit_tpu/pallas/fused_isp.py::_isp_kernel
-// (math in _isp_compute). Per image, in f32:
+// Replaces the TPU kernels raw2logit_tpu/pallas/fused_isp.py::_isp_kernel
+// (serving, r2l_fused_isp_fwd) and ::_isp_kernel_train (training,
+// r2l_fused_isp_fwd_train: the same kernel, which also stores the residual
+// planes the backward kernel reads). Math in fused_isp_common.cuh; per
+// image, in f32:
 //   x   = raw - black_level[RGGB site]
 //   deb = 3x3 debayer correlation of the scattered mosaic, torch-'reflect'
 //         padded (row/col -1 -> 1, n -> n-2), kernel K[tap][ci*3+co]
@@ -9,12 +12,14 @@
 //   s   = 3x3 sharpen of Y, ZERO padded (Y outside the image is 0)
 //   t   = 5x5 blur of s, REFLECT padded (s[-1] = s[1], s[-2] = s[2])
 //   out = exp(log(clip(M_YUV2RGB . (t, U, V), 1e-5, 1)) * (1 / gamma))
-// Input raw (B, H, W) f32, output planar RGB (B, 3, H, W) f32.
+// Input raw (B, H, W) f32; output planar RGB (B, 3, H, W) f32 and, for
+// training, res (B, 5, H, W) = [deb0, deb1, deb2, s, t].
 //
-// Bound on an H100: memory. It must read 4 B and write 12 B per pixel
-// (16 B; 268 MB at B = 256, 256x256, ~80 us at 3.35 TB/s) against about
-// 170 f32 operations and 6 transcendentals per pixel, well under the
-// card's non-tensor f32 rate for that time.
+// Bound on an H100: memory. Serving reads 4 B and writes 12 B per pixel
+// (16 B; 268 MB at B = 256, 256x256, ~80 us at 3.35 TB/s); training also
+// writes 20 B of residuals (36 B, ~180 us). Both do about 174 f32
+// operations and 6 transcendentals per pixel, well under the card's
+// non-tensor f32 rate for that time.
 //
 // Design: one CTA of 256 threads per 32x32 output tile of one image. The
 // tile's mosaic is staged in shared memory with a 4-px halo (1 for the
@@ -23,125 +28,72 @@
 // stage pads at the IMAGE border, not the tile border: Y is 0 outside
 // the image, and the blur reads s at reflected in-image positions, which
 // always fall inside the tile+-2 region. U and V need only the debayer
-// at the pixel itself. The debayer source site of each tap has one known
-// RGGB channel (reflection keeps parity), so it is 9 taps x 3 outputs.
-// A later change makes it fast (TMA tile loads, a persistent grid,
-// several tiles per CTA to amortise the halo).
+// at the pixel itself. The residuals are stores of values each output
+// pixel already holds. A later change makes it fast (TMA tile loads, a
+// persistent grid, several tiles per CTA to amortise the halo).
 //
 // No fast math: expf/logf, and 1/gamma kept as a multiply as on the TPU.
 
-#include <cuda_runtime.h>
+#include "fused_isp_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
+using namespace r2l;
+
 constexpr int HALO = 4;
 constexpr int XS = TILE + 2 * HALO;  // mosaic minus black level, tile+-4
 constexpr int YS = TILE + 6;         // luma Y, tile+-3
 constexpr int SS = TILE + 4;         // sharpened luma s, tile+-2
-constexpr int NTHREADS = 256;
 
-// Offsets into the packed parameter buffer (kernels/fused_isp.py
-// pack_params writes this layout).
-constexpr int P_BL = 0;        // 4: black level per RGGB site
-constexpr int P_KDEB = 4;      // 81: debayer [tap = kh*3+kw][ci*3+co]
-constexpr int P_A = 85;        // 9: M_RGB2YUV . CCM . diag(WB), row-major
-constexpr int P_MINV = 94;     // 9: M_YUV2RGB, row-major
-constexpr int P_KSHARP = 103;  // 9: sharpen [kh][kw]
-constexpr int P_KBLUR = 112;   // 25: blur [kh][kw]
-constexpr int P_GAMMA = 137;   // 1
-constexpr int P_COUNT = 138;
-
-// torch 'reflect' for an index at most one period outside [0, n).
-__device__ __forceinline__ int reflect(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
-// RGGB channel of site (r, c): 0 = R, 1 = G, 2 = B. Valid for negative
-// indices too (two's complement & 1 gives the parity).
-__device__ __forceinline__ int site_channel(int r, int c) {
-  return (r & 1) + (c & 1);
-}
-
-// Debayer at image site (r, c), whose mosaic value is xs[lr][lc].
-__device__ __forceinline__ void debayer_at(const float (*xs)[XS], int lr,
-                                           int lc, int r, int c,
-                                           const float* p, float& d0,
-                                           float& d1, float& d2) {
-  d0 = d1 = d2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float x = xs[lr + i - 1][lc + j - 1];
-      const float* k =
-          p + P_KDEB + (i * 3 + j) * 9 + site_channel(r + i - 1, c + j - 1) * 3;
-      d0 += k[0] * x;
-      d1 += k[1] * x;
-      d2 += k[2] * x;
-    }
-  }
-}
-
+template <bool kRes>
 __global__ void __launch_bounds__(NTHREADS)
 fused_isp_fwd_kernel(const float* __restrict__ raw,
                      const float* __restrict__ params,
-                     float* __restrict__ out, int H, int W) {
+                     float* __restrict__ out, float* __restrict__ res, int H,
+                     int W) {
   __shared__ float p[P_COUNT];
-  __shared__ float xs[XS][XS];
-  __shared__ float ys[YS][YS];
-  __shared__ float ss[SS][SS];
+  __shared__ float xs_data[XS * XS];
+  __shared__ float ys_data[YS * YS];
+  __shared__ float ss_data[SS * SS];
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.y * TILE;
   const int c0 = blockIdx.x * TILE;
   const size_t plane = (size_t)H * W;
   const float* img = raw + blockIdx.z * plane;
+  const Plane xs = make_plane(xs_data, r0, c0, HALO);
+  const Plane ys = make_plane(ys_data, r0, c0, 3);
+  const Plane ss = make_plane(ss_data, r0, c0, 2);
 
   for (int i = tid; i < P_COUNT; i += NTHREADS) p[i] = params[i];
   __syncthreads();
 
-  // 1. Mosaic minus black level on tile+-4. Rows/cols -1 and n are the
-  //    debayer's reflect pad; sites further out feed only luma outside
-  //    the image, which is zero, so they hold 0.
+  // 1. Mosaic minus black level on tile+-4.
   for (int i = tid; i < XS * XS; i += NTHREADS) {
-    const int lr = i / XS, lc = i % XS;
-    const int r = r0 - HALO + lr, c = c0 - HALO + lc;
-    float v = 0.f;
-    if (r >= -1 && r <= H && c >= -1 && c <= W) {
-      const int rr = reflect(r, H), cc = reflect(c, W);
-      v = img[(size_t)rr * W + cc] - p[P_BL + (rr & 1) * 2 + (cc & 1)];
-    }
-    xs[lr][lc] = v;
+    const int r = xs.r0 + i / XS, c = xs.c0 + i % XS;
+    xs.at(r, c) = mosaic_at(img, p, r, c, H, W);
   }
   __syncthreads();
 
   // 2. Luma Y = A[0] . deb on tile+-3, zero outside the image (the
   //    sharpen's zero pad).
   for (int i = tid; i < YS * YS; i += NTHREADS) {
-    const int lr = i / YS, lc = i % YS;
-    const int r = r0 - 3 + lr, c = c0 - 3 + lc;
+    const int r = ys.r0 + i / YS, c = ys.c0 + i % YS;
     float y = 0.f;
     if (r >= 0 && r < H && c >= 0 && c < W) {
       float d0, d1, d2;
-      debayer_at(xs, lr + 1, lc + 1, r, c, p, d0, d1, d2);
-      y = p[P_A + 0] * d0 + p[P_A + 1] * d1 + p[P_A + 2] * d2;
+      debayer_at(xs, r, c, p, d0, d1, d2);
+      y = mix_row(p + P_A, d0, d1, d2);
     }
-    ys[lr][lc] = y;
+    ys.at(r, c) = y;
   }
   __syncthreads();
 
   // 3. Sharpened luma s on tile+-2. Entries outside the image are never
   //    read: the blur reflects into the image.
   for (int i = tid; i < SS * SS; i += NTHREADS) {
-    const int lr = i / SS, lc = i % SS;
-    float s = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b) s += p[P_KSHARP + a * 3 + b] * ys[lr + a][lc + b];
-    }
-    ss[lr][lc] = s;
+    const int r = ss.r0 + i / SS, c = ss.c0 + i % SS;
+    ss.at(r, c) = sharpen_at(ys, r, c, p);
   }
   __syncthreads();
 
@@ -149,47 +101,53 @@ fused_isp_fwd_kernel(const float* __restrict__ raw,
   //    YUV->RGB, clip, gamma; one coalesced row of 32 per warp.
   const float inv_g = 1.0f / p[P_GAMMA];
   for (int i = tid; i < TILE * TILE; i += NTHREADS) {
-    const int lr = i / TILE, lc = i % TILE;
-    const int r = r0 + lr, c = c0 + lc;
+    const int r = r0 + i / TILE, c = c0 + i % TILE;
     if (r >= H || c >= W) continue;
-    int rows[5], cols[5];
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      rows[k] = reflect(r + k - 2, H) - (r0 - 2);
-      cols[k] = reflect(c + k - 2, W) - (c0 - 2);
-    }
-    float t = 0.f;
-#pragma unroll
-    for (int a = 0; a < 5; ++a) {
-#pragma unroll
-      for (int b = 0; b < 5; ++b) t += p[P_KBLUR + a * 5 + b] * ss[rows[a]][cols[b]];
-    }
+    const float t = blur_at(ss, r, c, H, W, p);
     float d0, d1, d2;
-    debayer_at(xs, lr + HALO, lc + HALO, r, c, p, d0, d1, d2);
-    const float u = p[P_A + 3] * d0 + p[P_A + 4] * d1 + p[P_A + 5] * d2;
-    const float v = p[P_A + 6] * d0 + p[P_A + 7] * d1 + p[P_A + 8] * d2;
+    debayer_at(xs, r, c, p, d0, d1, d2);
+    const float u = mix_row(p + P_A + 3, d0, d1, d2);
+    const float v = mix_row(p + P_A + 6, d0, d1, d2);
+    const size_t at = (size_t)r * W + c;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      float val = p[P_MINV + ch * 3 + 0] * t + p[P_MINV + ch * 3 + 1] * u +
-                  p[P_MINV + ch * 3 + 2] * v;
-      val = fminf(fmaxf(val, 1e-5f), 1.0f);
-      out[(blockIdx.z * 3 + ch) * plane + (size_t)r * W + c] =
-          expf(logf(val) * inv_g);
+      const float val = clip(pre_clip(p, ch, t, u, v));
+      out[(blockIdx.z * 3 + ch) * plane + at] = expf(logf(val) * inv_g);
+    }
+    if (kRes) {
+      float* rs = res + blockIdx.z * 5 * plane + at;
+      rs[0] = d0;
+      rs[plane] = d1;
+      rs[2 * plane] = d2;
+      rs[3 * plane] = ss.at(r, c);
+      rs[4 * plane] = t;
     }
   }
+}
+
+template <bool kRes>
+int launch(const float* raw, const float* params, float* out, float* res,
+           int B, int H, int W, void* stream) {
+  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
+  fused_isp_fwd_kernel<kRes><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      raw, params, out, res, H, W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// Both launch on `stream` and return cudaGetLastError() after the launch.
 int r2l_fused_isp_fwd(const float* raw, const float* params, float* out,
                       int B, int H, int W, void* stream) {
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  fused_isp_fwd_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      raw, params, out, H, W);
-  return (int)cudaGetLastError();
+  return launch<false>(raw, params, out, nullptr, B, H, W, stream);
+}
+
+int r2l_fused_isp_fwd_train(const float* raw, const float* params,
+                            float* out, float* res, int B, int H, int W,
+                            void* stream) {
+  return launch<true>(raw, params, out, res, B, H, W, stream);
 }
 
 const char* r2l_cuda_error_string(int code) {

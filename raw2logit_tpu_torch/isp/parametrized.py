@@ -13,7 +13,7 @@ import torch.nn as nn
 
 from raw2logit_tpu_torch import resolve_device
 from raw2logit_tpu_torch.isp.batchnorm import TorchBatchNorm
-from raw2logit_tpu_torch.kernels.fused_isp import fused_isp
+from raw2logit_tpu_torch.kernels.fused_isp import fused_isp_autograd
 from raw2logit_tpu_torch.ops import constants
 from raw2logit_tpu_torch.ops.color import (colour_correction, rgb_to_yuv,
                                            white_balance, yuv_to_rgb)
@@ -51,10 +51,12 @@ class ParametrizedProcessing(nn.Module):
         batch_norm_output: append an affine-free torch-semantics batch norm.
         additive_layer: a learnable zero-initialised (1, 3, H, W) additive
             perturbation; needs a static ``image_size``.
-        use_kernel: run the fused CUDA kernel (``kernels.fused_isp``) for the
-            pre-batch-norm chain whenever no stage is tracked and no tap is
-            given (the JAX module's ``use_pallas``). On a CPU tensor the
-            kernel's wrapper runs its plain version.
+        use_kernel: run the fused CUDA kernels for the pre-batch-norm
+            chain whenever no stage is tracked and no tap is given (the JAX
+            module's ``use_pallas``): ``kernels.fused_isp_autograd``, the
+            serving kernel without autograd, else ``FusedISP`` (training
+            forward + residual backward kernel). On a CPU tensor the
+            wrappers run their plain versions.
         device: where the parameters live; None means cuda, and raises
             when CUDA is missing.
     """
@@ -78,10 +80,13 @@ class ParametrizedProcessing(nn.Module):
         self.white_balance = param(torch.tensor(wb).reshape(1, 3))
         self.colour_correction = param(torch.tensor(ccm).reshape(3, 3))
         self.gamma_correct = param([2.2])
-        self.sharpening_filter = _Filter(
-            torch.from_numpy(constants.K_SHARP).reshape(1, 1, 3, 3).to(device))
-        self.gaussian_blur = _Filter(
-            torch.from_numpy(constants.K_BLUR).reshape(1, 1, 5, 5).to(device))
+        # copies: a view of the module-level constants would let an
+        # in-place update (the optimizer's, load_state_dict) write through
+        # to every other instance
+        self.sharpening_filter = _Filter(torch.tensor(
+            constants.K_SHARP, device=device).reshape(1, 1, 3, 3))
+        self.gaussian_blur = _Filter(torch.tensor(
+            constants.K_BLUR, device=device).reshape(1, 1, 5, 5))
         # the debayer weight is learnable (an nn.Conv2d in the reference)
         self.debayer = _Filter(_debayer_init().to(device))
         self.additive_layer = (
@@ -91,7 +96,7 @@ class ParametrizedProcessing(nn.Module):
                            if batch_norm_output else None)
 
     def kernel_params(self):
-        """The parameter dict of ``kernels.fused_isp``."""
+        """The parameter dict of the fused ISP kernels (not detached)."""
         return {"black_level": self.black_level,
                 "debayer": self.debayer.weight,
                 "white_balance": self.white_balance,
@@ -115,7 +120,7 @@ class ParametrizedProcessing(nn.Module):
             return x
 
         if self.use_kernel and not self.track_stages and taps is None:
-            rgb = fused_isp(raw, self.kernel_params())
+            rgb = fused_isp_autograd(raw, self.kernel_params())
             if self.additive_layer is not None:
                 rgb = rgb + self.additive_layer
             if self.batch_norm is not None:

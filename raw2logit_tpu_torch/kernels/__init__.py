@@ -2,8 +2,14 @@
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor, and counts its launches in an integer
-attribute (``fused_isp.launches``).
+attribute (``fused_isp.launches``, ``fused_isp_train.launches``,
+``fused_isp_bwd.launches_res`` and ``fused_isp_bwd.launches``).
+``FusedISP`` pairs the training forward with the backward kernel.
 """
 
 from raw2logit_tpu_torch.kernels.fused_isp import (  # noqa: F401
-    fused_isp, fused_isp_reference, pack_params)
+    PARAM_NAMES, FusedISP, fused_isp, fused_isp_autograd,
+    fused_isp_reference, fused_isp_train, fused_isp_train_reference,
+    isp_from_packed, pack_params)
+from raw2logit_tpu_torch.kernels.fused_isp_bwd import (  # noqa: F401
+    fused_isp_bwd, fused_isp_bwd_reference, unpack_grads)

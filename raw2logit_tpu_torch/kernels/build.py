@@ -31,10 +31,14 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where ``csrc/<name>.cu`` builds to."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to: the hash covers the source and
+    every header in ``csrc/``."""
+    digest = hashlib.sha1()
+    for fname in [f"{name}.cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(names):

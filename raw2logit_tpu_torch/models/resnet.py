@@ -2,11 +2,13 @@
 
 NCHW, torchvision parameter names (``conv1``, ``bn1``, ``layer1.0.conv1``,
 ``layer2.0.downsample.0``, ``fc``), and the JAX model's numerics, which
-differ from torchvision's in two places:
+differ from torchvision's in three places:
 
   * the block convs pad as flax ``padding="SAME"``: a stride-2 3x3 conv
     on an even input pads (0, 1), not (1, 1);
-  * the last batch norm of every block starts with a zero scale.
+  * the last batch norm of every block starts with a zero scale;
+  * in train mode the batch norms update the running variance with the
+    biased batch variance, as flax does (``FlaxBatchNorm2d``).
 """
 
 import math
@@ -38,11 +40,33 @@ class Conv2dSame(nn.Conv2d):
         return super().forward(F.pad(x, pads) if any(pads) else x)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax ``nn.BatchNorm``'s running-variance
+    update: torch momentum 0.1 is flax's momentum 0.9
+    (r = 0.9 r + 0.1 batch), and flax updates the running variance with
+    the BIASED batch variance, where torch uses the unbiased one.
+    Normalisation (biased batch variance in train mode, running
+    statistics in eval mode) is torch's, which is flax's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        # torch's op updates a copy of the running variance (the graph
+        # keeps that copy, so the buffer itself may change afterwards):
+        # kept + momentum * var * n / (n - 1), with kept = (1 - m) * old
+        n = x.numel() // x.shape[1]
+        updated = self.running_var.clone()
+        self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x, self.running_mean, updated, self.weight,
+                         self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_var.copy_((updated - kept) * ((n - 1) / n) + kept)
+        return y
+
+
 def _bn(features, device):
-    # torch momentum 0.1 is flax's momentum 0.9 (r = 0.9 r + 0.1 batch).
-    # Unlike flax, torch updates the running variance with the UNBIASED
-    # batch variance; eval mode, the only mode served, is the same in both.
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1, device=device)
+    return FlaxBatchNorm2d(features, eps=1e-5, momentum=0.1, device=device)
 
 
 class BasicBlock(nn.Module):

@@ -11,9 +11,11 @@ from raw2logit_tpu_torch.ops import constants
 
 
 def _mix(img, m):
-    """out_k = sum_c m[k, c] * img_c over the colour axis (dim -3)."""
+    """out_k = sum_c m[k, c] * img_c over the colour axis (dim -3), in
+    contiguous NCHW (einsum returns channels-last strides, on which the
+    CPU convolution backward of PyTorch 2.13 crashes)."""
     m = torch.as_tensor(m, dtype=img.dtype, device=img.device).reshape(3, 3)
-    return torch.einsum("...chw,kc->...khw", img, m)
+    return torch.einsum("...chw,kc->...khw", img, m).contiguous()
 
 
 def white_balance(rgb, wb):

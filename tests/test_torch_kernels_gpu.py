@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Imports no JAX, so that it runs where the port runs:
+"""The port's CUDA kernels (the serving and training forwards, both
+backward variants, and ``FusedISP`` around them) against their plain
+PyTorch versions, on the card. Imports no JAX, so that it runs where the port runs:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -10,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kernel_tolerance
+from chip_smoke import (RES_TOL, VARIANT_TOL, bn_cotangent, bwd_agreement,
+                        kernel_tolerance, processor, smooth_mosaics, witness)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
-from raw2logit_tpu_torch.kernels import fused_isp, fused_isp_reference
+from raw2logit_tpu_torch.kernels import (
+    fused_isp, fused_isp_bwd, fused_isp_bwd_reference, fused_isp_reference,
+    fused_isp_train, fused_isp_train_reference, unpack_grads)
 
 # the camera of tests/test_pallas.py
 MILD_CAM = (
@@ -24,9 +28,15 @@ MILD_CAM = (
 
 @pytest.fixture
 def cuda():
+    """The CUDA device, with TF32 off for cuDNN and matmul while the test
+    runs, so that the plain versions compute in full float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    return torch.device("cuda")
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
 @pytest.mark.gpu
@@ -47,8 +57,7 @@ def test_fused_isp_matches_plain(shape, cuda, rng):
         :, None, None]
     raw = torch.as_tensor(raw, dtype=torch.float32, device=cuda)
     launches = fused_isp.launches
-    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
-                                                     allow_tf32=False):
+    with torch.no_grad():
         got = fused_isp(raw, params)
         assert fused_isp.launches == launches + 1
         want = fused_isp_reference(raw, params)
@@ -69,3 +78,129 @@ def test_fused_isp_checks_its_input(cuda):
         fused_isp(raw[:, ::2], params)  # not contiguous
     with pytest.raises(ValueError):
         fused_isp(raw[:, :2], params)  # too small for the reflect pad
+
+
+def perturbed_params(cuda, rng, camera=MILD_CAM):
+    proc = ParametrizedProcessing(camera_parameters=camera, device=cuda)
+    params = proc.kernel_params()
+    with torch.no_grad():
+        for p in params.values():
+            p.add_(torch.as_tensor(rng.normal(0.0, 0.05, p.shape),
+                                   dtype=torch.float32, device=cuda))
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45), (1, 3, 3)])
+def test_fused_isp_train_matches_plain(shape, cuda, rng):
+    """The training forward: RGB as the serving kernel's (bitwise) and
+    within the serving kernel's tolerance of the plain version; residual
+    planes within chip_smoke.RES_TOL (2e-5 abs)."""
+    params = perturbed_params(cuda, rng)
+    raw = torch.as_tensor(rng.uniform(0, 1, shape), dtype=torch.float32,
+                          device=cuda)
+    launches = fused_isp_train.launches
+    with torch.no_grad():
+        out, res = fused_isp_train(raw, params)
+        assert fused_isp_train.launches == launches + 1
+        served = fused_isp(raw, params)
+        want, want_res = fused_isp_train_reference(raw, params)
+    torch.cuda.synchronize()
+    assert res.shape == (shape[0], 5) + shape[1:]
+    assert torch.equal(out, served)
+    gamma = float(params["gamma_correct"].detach())
+    assert bool(((out - want).abs().double()
+                 <= kernel_tolerance(want, gamma)).all())
+    assert float((res - want_res).abs().max()) <= RES_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cotangent", ["positive", "bn_backward"])
+@pytest.mark.parametrize("variant", ["res", "recompute"])
+@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45)])
+def test_fused_isp_bwd_matches_plain(shape, variant, cotangent, cuda):
+    """Both backward variants against autograd of the plain version on a
+    smoothed input, under a positive cotangent and under the mean-zero one
+    of a training-mode batch norm: chip_smoke's statistical contract
+    (tests/test_pallas.py:153-159) against the float32 plain version, and
+    its tight limits (BWD_TIGHT_DRAW, BWD_F64_PARAM), with chip_smoke's
+    seeded ISP as in its train_kernels_vs_plain phase."""
+    params = processor(cuda, use_kernel=True, camera=MILD_CAM).kernel_params()
+    raw = smooth_mosaics(shape).to(cuda)
+    with torch.no_grad():
+        out, res = fused_isp_train(raw, params)
+    g = ((out * 0.5 + 0.1).contiguous() if cotangent == "positive"
+         else bn_cotangent(out))
+    with torch.no_grad():
+        launches = (fused_isp_bwd.launches, fused_isp_bwd.launches_res)
+        run = fused_isp_bwd(raw, params, g, res if variant == "res" else None)
+        assert (fused_isp_bwd.launches, fused_isp_bwd.launches_res) == (
+            (launches[0], launches[1] + 1) if variant == "res"
+            else (launches[0] + 1, launches[1]))
+    d_ref, scal = fused_isp_bwd_reference(raw, params, g)
+    plain = d_ref, unpack_grads(scal, params)
+    torch.cuda.synchronize()
+    stats, ok = bwd_agreement(run, plain, witness(raw, params, g), tight=True)
+    assert ok, stats
+
+
+@pytest.mark.gpu
+def test_fused_isp_bwd_variants_agree_and_repeat(cuda, rng):
+    """Residual and recompute variants within chip_smoke.VARIANT_TOL (1e-6
+    abs); two launches of the residual variant bitwise identical."""
+    params = perturbed_params(cuda, rng)
+    raw = torch.as_tensor(rng.uniform(0, 1, (3, 130, 97)),
+                          dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        out, res = fused_isp_train(raw, params)
+        g = out * 0.5 + 0.1
+        d_a, g_a = fused_isp_bwd(raw, params, g, res)
+        d_b, g_b = fused_isp_bwd(raw, params, g)
+        d_c, g_c = fused_isp_bwd(raw, params, g, res)
+    torch.cuda.synchronize()
+    assert float((d_a - d_b).abs().max()) <= VARIANT_TOL
+    for k in g_a:
+        assert float((g_a[k] - g_b[k]).abs().max()) <= VARIANT_TOL, k
+        assert torch.equal(g_a[k], g_c[k]), k
+    assert torch.equal(d_a, d_c)
+
+
+@pytest.mark.gpu
+def test_fused_isp_autograd_reaches_every_parameter(cuda, rng):
+    """With grad enabled on a CUDA tensor, every ISP parameter gets a
+    gradient through the training forward and the residual backward
+    kernel; under no_grad the serving kernel runs."""
+    proc = ParametrizedProcessing(camera_parameters=MILD_CAM, use_kernel=True,
+                                  device=cuda).train()
+    raw = torch.as_tensor(rng.uniform(0, 1, (2, 64, 64)),
+                          dtype=torch.float32, device=cuda)
+    before = (fused_isp.launches, fused_isp_train.launches,
+              fused_isp_bwd.launches_res)
+    rgb, _ = proc(raw)
+    rgb.square().sum().backward()
+    assert (fused_isp.launches, fused_isp_train.launches,
+            fused_isp_bwd.launches_res) == (before[0], before[1] + 1,
+                                            before[2] + 1)
+    for name, p in proc.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+    with torch.no_grad():
+        proc(raw)
+    assert fused_isp.launches == before[0] + 1
+
+
+@pytest.mark.gpu
+def test_fused_isp_bwd_checks_its_input(cuda):
+    params = ParametrizedProcessing(device=cuda).kernel_params()
+    raw = torch.rand(2, 16, 16, device=cuda)
+    g = torch.rand(2, 3, 16, 16, device=cuda)
+    res = torch.rand(2, 5, 16, 16, device=cuda)
+    with pytest.raises(TypeError):
+        fused_isp_bwd(raw, params, g.double(), res)
+    with pytest.raises(ValueError):
+        fused_isp_bwd(raw, params, g.transpose(2, 3), res)  # not contiguous
+    with pytest.raises(ValueError):
+        fused_isp_bwd(raw, params, g, res[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        fused_isp_bwd(raw, params, g[:1].contiguous())
+    with pytest.raises(TypeError):
+        fused_isp_train(raw.double(), params)
