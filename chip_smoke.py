@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and drift-forensics paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,7 @@ line):
 1. device: the ``nvidia-smi`` name and power limit; TF32 off for cuDNN
    and matmul, so that every comparison below is full f32.
 2. build: compile the CUDA sources (``fused_isp_fwd.cu``,
-   ``fused_isp_bwd.cu``) with nvcc, in parallel.
+   ``fused_isp_bwd.cu``, ``ssim_aux.cu``) with nvcc, in parallel.
 3. kernel vs plain: the serving kernel against its plain PyTorch
    version, at the serving shape (B=32, 256x256: edge and corner tiles
    included) and at shapes that are not multiples of the tile, with
@@ -39,13 +39,33 @@ line):
    its ISP. Then 5 kernel-path steps, counting launches: every ISP
    parameter moves. Then the recompute backward as its users call it,
    ``fused_isp_bwd`` without residuals, on that batch and cotangent.
-7. times: CUDA-event times of each kernel, its plain version and its
-   bound, of ``Predictor.__call__`` and of a train step, at B=32 and
-   B=256.
-8. profile: device time by kernel and the device's idle share of
-   ``Predictor.__call__``, of a train step and of the recompute backward
-   (torch.profiler), at B=32 and B=256.
-9. the ``kernels`` line, then the ``ok`` line.
+7. ssim kernel vs plain: the SSIM aux kernel against its plain version
+   (autograd of ``ops/ssim.py``) at B=32 and three smaller shapes, two
+   weights, on the batch-normalised outputs of the default and a
+   perturbed microscopy ISP and on random images with flat patches: the
+   value within ``SSIM_VALUE_REL`` of the float64 plain version, the
+   gradient within ``SSIM_GRAD_REL`` of the float32 one and no further
+   from the float64 one than ``SSIM_F64_FACTOR`` times the float32 one
+   is, two launches bitwise equal.
+8. adversarial: the drift-forensics step (``bench.py``'s adversarial
+   family: ResNet-18 frozen, SSIM aux weight 0.3, lr 1e-3) at B=32, one
+   step through the kernel path against the plain path from identical
+   weights, the SSIM cotangent and the ISP gradients held to float64
+   witnesses on that step's own tensors; then 5 kernel-path steps,
+   counting launches: the reference, the classifier and every BN
+   statistic bitwise unchanged, every ISP parameter moved; then one step
+   each targeting ``gamma_correct`` and ``additive_layer``.
+9. cli: the forensics sequence through the training CLI
+   (``python -m raw2logit_tpu_torch.training.train``): a pretraining run
+   with a frozen ISP and weak augmentation, then an SSIM-regularised
+   attack on gamma through the classifier file it wrote.
+10. times: CUDA-event times of each kernel, its plain version and its
+   bound, of ``Predictor.__call__``, of a train step and of an
+   adversarial step, at B=32 and B=256.
+11. profile: device time by kernel and the device's idle share of
+   ``Predictor.__call__``, of a train step, of an adversarial step and of
+   the recompute backward (torch.profiler), at B=32 and B=256.
+12. the ``kernels`` line, then the ``ok`` line.
 """
 
 import copy
@@ -66,7 +86,7 @@ from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
     PARAM_NAMES, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
     fused_isp_reference, fused_isp_train, fused_isp_train_reference,
-    unpack_grads)
+    ssim_aux_reference, ssim_aux_value_grad, unpack_grads)
 from raw2logit_tpu_torch.kernels.build import build
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.serving import Predictor
@@ -156,8 +176,14 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 #   dK_debayer 27 FMA (140), d_black_level 1.
 # fused_isp_bwd: reads no residuals (20 B) and recomputes deb, s and t:
 #   black level 1, debayer 54, Y 6, sharpen 18, blur 50, so 515.
+# ssim_aux, per element of (B, 3, H, W): read x and y, write d/dy (12 B);
+#   396 operations: x^2, y^2, xy 3; five fields of a vertical and a
+#   horizontal 11-tap pass 220 (110 FMA); the map's terms A1 3, A2 4, D1 4,
+#   D2 6, D1 D2 1, m 2, its three derivatives 13, the sum of m 1; three
+#   adjoint blurs of two passes 132 (66 FMA); the combination at the pixel 7.
 KERNEL_COST = {"fused_isp_fwd": (16, 174), "fused_isp_fwd_train": (36, 174),
-               "fused_isp_bwd_res": (40, 386), "fused_isp_bwd": (20, 515)}
+               "fused_isp_bwd_res": (40, 386), "fused_isp_bwd": (20, 515),
+               "ssim_aux": (12, 396)}
 # The TPU kernel each CUDA kernel replaces, and its source.
 KERNELS = {
     "fused_isp_fwd": ("raw2logit_tpu/pallas/fused_isp.py:135",
@@ -168,7 +194,26 @@ KERNELS = {
                           "raw2logit_tpu_torch/csrc/fused_isp_bwd.cu"),
     "fused_isp_bwd": ("raw2logit_tpu/pallas/fused_isp_bwd.py:201",
                       "raw2logit_tpu_torch/csrc/fused_isp_bwd.cu"),
+    "ssim_aux": ("raw2logit_tpu/pallas/ssim_aux.py:86",
+                 "raw2logit_tpu_torch/csrc/ssim_aux.cu"),
 }
+# SSIM aux kernel vs its plain version: the value within SSIM_VALUE_REL
+# of the float64 plain version (relative), or within SSIM_F64_FACTOR
+# times the float32 plain version's own distance from it where that is
+# larger (on the batch-normalised ISP pair the float32 plain value reads
+# 1.8e-6 from float64 on the CPU at (2, 3, 40, 36): clipped regions are
+# flat, where B11 - mu1^2 cancels against C2 = 9e-4); the gradient within
+# SSIM_GRAD_REL of the float32 plain version (over its max |.|), and no
+# further from the float64 plain version than SSIM_F64_FACTOR times the
+# float32 plain version is.
+SSIM_VALUE_REL, SSIM_GRAD_REL, SSIM_F64_FACTOR = 1e-6, 1e-5, 2.0
+SSIM_SHAPES = ((SERVE_BATCH, 3, SIZE, SIZE), (4, 3, 250, 250), (3, 3, 67, 45),
+               (2, 3, 5, 7))
+SSIM_WEIGHTS = (0.3, -1.0)
+# The adversarial family of bench.py:88-99 (frozen ResNet-18, SSIM aux
+# weight 0.3, lr 1e-3); the attacked ISP starts from the reference ISP
+# perturbed by half the scale of ``processor``'s perturbation.
+ADV_LR, ADV_AUX_WEIGHT, ADV_STEPS = 1e-3, 0.3, 5
 
 
 def emit(obj):
@@ -188,7 +233,8 @@ def peaks(kind):
 
 
 def bound(kind, n_pixels, kernel="fused_isp_fwd"):
-    """Least time (ms) and what bounds it for ``kernel`` on n pixels."""
+    """Least time (ms) and what bounds it for ``kernel`` on n pixels (n
+    elements of (B, 3, H, W) for ssim_aux)."""
     _, bw, ops = peaks(kind)
     bytes_pp, ops_pp = KERNEL_COST[kernel]
     t_bytes = n_pixels * bytes_pp / bw * 1e3
@@ -199,6 +245,7 @@ def bound(kind, n_pixels, kernel="fused_isp_fwd"):
 def reset_counts():
     fused_isp.launches = fused_isp_train.launches = 0
     fused_isp_bwd.launches = fused_isp_bwd.launches_res = 0
+    ssim_aux_value_grad.launches = 0
 
 
 def counts():
@@ -206,7 +253,15 @@ def counts():
     return {"fused_isp_fwd": fused_isp.launches,
             "fused_isp_fwd_train": fused_isp_train.launches,
             "fused_isp_bwd_res": fused_isp_bwd.launches_res,
-            "fused_isp_bwd": fused_isp_bwd.launches}
+            "fused_isp_bwd": fused_isp_bwd.launches,
+            "ssim_aux": ssim_aux_value_grad.launches}
+
+
+def launches(fwd=0, fwd_train=0, bwd_res=0, bwd=0, ssim=0):
+    """An expected ``counts()``."""
+    return {"fused_isp_fwd": fwd, "fused_isp_fwd_train": fwd_train,
+            "fused_isp_bwd_res": bwd_res, "fused_isp_bwd": bwd,
+            "ssim_aux": ssim}
 
 
 def processor(device, use_kernel, camera=MICROSCOPY_CAMERA_PARAMS,
@@ -364,7 +419,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = build(["fused_isp_fwd", "fused_isp_bwd"])
+    report = build(["fused_isp_fwd", "fused_isp_bwd", "ssim_aux"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": report})
 
@@ -724,8 +779,7 @@ def phase_train(device, batch=SERVE_BATCH, steps=TRAIN_STEPS,
           "launches": main})
     check(all(np.isfinite(losses)), "finite losses")
     check(all(moved.values()), f"every ISP parameter moved {moved}")
-    check(main == {"fused_isp_fwd": 0, "fused_isp_fwd_train": steps,
-                   "fused_isp_bwd_res": steps, "fused_isp_bwd": 0},
+    check(main == launches(fwd_train=steps, bwd_res=steps),
           f"main-path launches {main}")
 
     # The recompute backward (no training path runs it, as in the JAX
@@ -741,14 +795,294 @@ def phase_train(device, batch=SERVE_BATCH, steps=TRAIN_STEPS,
                for k in grads)
     emit({"phase": "isp_backward_recompute", "batch": batch,
           "launches": recompute, "vs_train_step_max_abs": diff})
-    check(recompute == {"fused_isp_fwd": 0, "fused_isp_fwd_train": 0,
-                        "fused_isp_bwd_res": 0, "fused_isp_bwd": 1},
+    check(recompute == launches(bwd=1),
           f"recompute-path launches {recompute}")
     check(bool(torch.isfinite(d_raw).all()) and d_raw.shape == raw.shape,
           "finite d_raw of the input's shape")
     check(diff <= VARIANT_TOL, f"recompute backward vs the train step's "
                                f"ISP gradients {diff}")
     return main, recompute
+
+
+def bn_like_pair(shape, seed=SEED):
+    """Random images like batch-normalised ISP outputs (mean 0, std 1)
+    with a flat patch near zero in both, where D1 D2 is small."""
+    gen = torch.Generator().manual_seed(seed)
+    ref = torch.randn(shape, generator=gen)
+    x = ref + 0.3 * torch.randn(shape, generator=gen)
+    h, w = max(1, shape[2] // 4), max(1, shape[3] // 4)
+    ref[:, :, :h, :w] = 0.01
+    x[:, :, :h, :w] = 0.012
+    return ref, x
+
+
+def isp_pair(device, shape):
+    """The batch-normalised (batch statistics) outputs of the default and
+    of a perturbed microscopy ISP on the same mosaics: the pair the
+    adversarial step hands the SSIM aux kernel."""
+    b, _, h, w = shape
+    raw = test_mosaics((b, h, w)).to(device)
+    default = ParametrizedProcessing(
+        camera_parameters=MICROSCOPY_CAMERA_PARAMS, device=device)
+    with torch.no_grad():
+        return (default.train()(raw)[0].contiguous(),
+                processor(device, use_kernel=False).train()(raw)[0]
+                .contiguous())
+
+
+def ssim_agreement(ref, x, weight, vs_plain=True):
+    """The SSIM aux kernel on (ref, x) against the float32 and float64
+    plain versions and against a second launch: (statistics, whether they
+    hold the SSIM_* limits). ``vs_plain=False`` leaves out the gradient's
+    limit against the float32 plain version and keeps the float64
+    witness's (where float32 itself is far from float64, as on an ISP
+    output with large clipped regions)."""
+    value, d_x = ssim_aux_value_grad(ref, x, weight)
+    value2, d_x2 = ssim_aux_value_grad(ref, x, weight)
+    p_value, p_dx = ssim_aux_reference(ref, x, weight)
+    w_value, w_dx = ssim_aux_reference(ref, x, weight, torch.float64)
+    torch.cuda.synchronize()
+    scale = float(p_dx.abs().max())
+    stats = {"value": float(value),
+             "value_rel_err_vs_float64": abs(float(value) - float(w_value))
+             / abs(float(w_value)),
+             "plain_value_rel_err_vs_float64": abs(
+                 float(p_value) - float(w_value)) / abs(float(w_value)),
+             "grad_scale": scale,
+             "grad_max_abs_err": float((d_x - p_dx).abs().max()),
+             "grad_vs_float64": float((d_x.double() - w_dx).abs().max()),
+             "plain_grad_vs_float64": float((p_dx.double() - w_dx).abs()
+                                            .max()),
+             "bitwise_repeat": bool(torch.equal(d_x, d_x2)
+                                    and torch.equal(value, value2))}
+    ok = (bool(torch.isfinite(d_x).all())
+          and stats["value_rel_err_vs_float64"] <= max(
+              SSIM_VALUE_REL,
+              SSIM_F64_FACTOR * stats["plain_value_rel_err_vs_float64"])
+          and (not vs_plain
+               or stats["grad_max_abs_err"] <= SSIM_GRAD_REL * scale)
+          and stats["grad_vs_float64"] <= SSIM_F64_FACTOR
+          * stats["plain_grad_vs_float64"]
+          and stats["bitwise_repeat"])
+    return stats, ok
+
+
+def phase_ssim_kernel_vs_plain(device, shapes=SSIM_SHAPES,
+                               weights=SSIM_WEIGHTS):
+    """The SSIM aux kernel against its plain version on the ISP pair and
+    on random images with flat patches; returns the largest |kernel -
+    plain| of the gradient."""
+    worst = 0.0
+    for shape in shapes:
+        pairs = {"isp_pair": isp_pair(device, shape),
+                 "flat_patches": tuple(t.to(device)
+                                       for t in bn_like_pair(shape))}
+        for inputs, (ref, x) in pairs.items():
+            for weight in weights:
+                stats, ok = ssim_agreement(ref, x, weight)
+                emit({"phase": "ssim_kernel_vs_plain", "shape": list(shape),
+                      "inputs": inputs, "weight": weight, **stats})
+                check(ok, f"ssim_aux {shape} {inputs} {weight}: {stats}")
+                worst = max(worst, stats["grad_max_abs_err"])
+        del pairs
+    return worst
+
+
+def adv_config(target="all"):
+    return TrainConfig(lr=ADV_LR, adv_training=True, freeze_classifier=True,
+                       loss_weight=-1.0, adv_aux_loss="ssim",
+                       adv_aux_weight=ADV_AUX_WEIGHT, adv_parameters=target)
+
+
+def adv_copy(cfg, proc, clf, use_kernel=True, seed=SEED + 1):
+    """Deep copies of the reference ISP and the classifier, their
+    adversarial state (the reference is the ISP as copied), and the step;
+    then the attacked ISP is the reference perturbed with ``seed``."""
+    p, c = copy.deepcopy(proc), copy.deepcopy(clf)
+    p.use_kernel = use_kernel
+    state = create_train_state(cfg, p, c)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for t in p.parameters():
+            t.add_(torch.as_tensor(rng.normal(0.0, 0.02, t.shape),
+                                   dtype=torch.float32, device=t.device))
+    return p, c, state, make_train_step(cfg, p, c)
+
+
+def adv_setup(device, batch, size=SIZE, noise_layer=False):
+    """The adversarial step's inputs: labelled synthetic mosaics, the
+    perturbed microscopy ISP (kernel path, BN output; optionally with the
+    noise layer) as the reference, and the ResNet-18 as built, frozen."""
+    raw, y, _, clf = train_setup(device, batch, size)
+    proc = processor(device, use_kernel=True)
+    if noise_layer:
+        with_noise = ParametrizedProcessing(
+            camera_parameters=MICROSCOPY_CAMERA_PARAMS, additive_layer=True,
+            image_size=size, use_kernel=True, device=device)
+        with_noise.load_state_dict(proc.state_dict(), strict=False)
+        proc = with_noise
+    return raw, y, proc, clf
+
+
+def snapshot(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def phase_adversarial(device, batch=SERVE_BATCH, steps=ADV_STEPS):
+    """One adversarial step through the kernel path against the plain
+    path; then ``steps`` kernel-path steps counting launches; then one
+    step each for two targets. Returns the launch counts of the
+    ``steps`` steps."""
+    raw, y, proc, clf = adv_setup(device, batch)
+    cfg = adv_config()
+    runs = {}
+    for name, use_kernel in (("kernel", True), ("plain", False)):
+        p, c, state, step = adv_copy(cfg, proc, clf, use_kernel)
+        if name == "kernel":
+            seen = capture_cotangent(p)
+            params = {k: v.detach().clone()
+                      for k, v in p.kernel_params().items()}
+            with torch.no_grad():
+                ref_rgb = state.ref_processor(raw)[0]
+                rgb = p(raw)[0]
+        mets = step(state, raw, y)
+        runs[name] = ({n: t.grad for n, t in p.named_parameters()},
+                      float(mets["loss"]), float(mets["loss_aux"]))
+        if name == "kernel":
+            g = seen["g"]
+    (isp_k, loss_k, aux_k), (isp_p, loss_p, aux_p) = runs["kernel"], \
+        runs["plain"]
+    # a third of these values sit at the clipped regions' BN constant, where
+    # the float32 plain gradient reads ~5e-4 of its scale from float64: the
+    # float64 witness's limits only, as phase_train holds the backward
+    ssim_stats, ssim_ok = ssim_agreement(ref_rgb, rgb.contiguous(),
+                                         ADV_AUX_WEIGHT, vs_plain=False)
+    _, grads_64 = witness(raw, params, g)
+    _, scal = fused_isp_bwd_reference(raw, params, g)
+    plain_bwd = unpack_grads(scal, params)
+    same_cot = {
+        "kernel_step": max(max_rel(isp_k[ISP_NAMES[k]].double(), grads_64[k],
+                                   1e-3) for k in grads_64),
+        "plain_bwd_f32": max(max_rel(plain_bwd[k].double(), grads_64[k],
+                                     1e-3) for k in grads_64)}
+    isp_err = {n: max_rel(isp_k[n].double(), isp_p[n].double(), 1e-3)
+               for n in isp_k}
+    emit({"phase": "adversarial_step_vs_plain", "batch": batch,
+          "loss": loss_k, "loss_plain": loss_p, "loss_aux": aux_k,
+          "loss_aux_plain": aux_p, "isp_grad_max_rel_err": isp_err,
+          "ssim_cotangent_on_step_tensors": ssim_stats,
+          "isp_grads_vs_float64_bwd_same_cotangent": same_cot})
+    check(abs(loss_k - loss_p) <= LOSS_TOL, "adversarial loss")
+    check(abs(aux_k - aux_p) <= LOSS_TOL, "adversarial loss_aux")
+    check(max(isp_err.values()) <= BWD_PARAM,
+          f"adversarial ISP gradients {isp_err}")
+    check(ssim_ok, f"SSIM cotangent on the step's tensors {ssim_stats}")
+    check(same_cot["kernel_step"] <= BWD_PARAM,
+          f"adversarial ISP gradients vs the float64 backward {same_cot}")
+    del runs, isp_k, isp_p, g
+
+    p, c, state, step = adv_copy(cfg, proc, clf)
+    before, clf_before = snapshot(p), snapshot(c)
+    ref_before = snapshot(state.ref_processor)
+    reset_counts()
+    t0 = time.perf_counter()
+    mets = [step(state, raw, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    main = counts()
+    losses = [float(m["loss"]) for m in mets]
+    aux = [float(m["loss_aux"]) for m in mets]
+    moved = {n: not torch.equal(before[n], t.detach())
+             for n, t in p.named_parameters()}
+    frozen = {"reference": all(torch.equal(t, ref_before[n]) for n, t in
+                               state.ref_processor.state_dict().items()),
+              "classifier": all(torch.equal(t, clf_before[n])
+                                for n, t in c.state_dict().items()),
+              "isp_bn": all(torch.equal(t, before[n]) for n, t in
+                            p.state_dict().items() if "running" in n)}
+    emit({"phase": "adversarial", "batch": batch, "steps": steps,
+          "seconds": seconds, "losses": losses, "loss_aux": aux,
+          "isp_params_moved": moved, "bitwise_unchanged": frozen,
+          "launches": main})
+    check(all(np.isfinite(losses + aux)), "finite losses")
+    check(all(moved.values()), f"every ISP parameter moved {moved}")
+    check(all(frozen.values()), f"frozen modules unchanged {frozen}")
+    check(main == launches(fwd=steps, fwd_train=steps, bwd_res=steps,
+                           ssim=steps), f"adversarial launches {main}")
+
+    for target, noise_layer, want in (
+            ("gamma_correct", False, launches(fwd=1, fwd_train=1,
+                                              bwd_res=1, ssim=1)),
+            # no kernel parameter needs a gradient: the serving kernel
+            ("additive_layer", True, launches(fwd=2, ssim=1))):
+        raw_t, y_t, proc_t, clf_t = adv_setup(device, batch,
+                                              noise_layer=noise_layer)
+        p, c, state, step = adv_copy(adv_config(target), proc_t, clf_t)
+        before = snapshot(p)
+        reset_counts()
+        step(state, raw_t, y_t)
+        torch.cuda.synchronize()
+        got = counts()
+        moved = sorted(n for n, t in p.named_parameters()
+                       if not torch.equal(before[n], t.detach()))
+        emit({"phase": "adversarial_target", "target": target,
+              "launches": got, "moved": moved})
+        check(got == want, f"{target} launches {got}")
+        check(moved == [target], f"{target}: only it moves, {moved}")
+    return main
+
+
+def phase_cli(device, batch=SERVE_BATCH):
+    """The forensics sequence through the training CLI on the card, with
+    the fused kernels and --test_run: a pretraining run (frozen ISP, weak
+    augmentation, 1 epoch), then an attack on gamma with the noise layer
+    through the classifier file it wrote (SSIM aux weight -1, 2 epochs).
+    Returns the attack's launch counts."""
+    from raw2logit_tpu_torch.training import train as cli
+    common = ["--dataset", "SyntheticMicroscopy", "--batch_size", str(batch),
+              "--n_splits", "1", "--use_pallas", "--test_run",
+              "--experiment_name", "forensics"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            (pre,) = cli.main(common + [
+                "--freeze_processor", "--augmentation", "weak", "--epochs",
+                "1", "--lr", "1e-3", "--run_name", "pretrain"])
+            pre_s = time.perf_counter() - t0
+            clf_path = os.path.join(pre["run"].dir, "checkpoints",
+                                    "classifier.pt")
+            reset_counts()
+            t0 = time.perf_counter()
+            (adv,) = cli.main(common + [
+                "--adv_training", "--freeze_classifier", "--classifier_uri",
+                clf_path, "--adv_aux_loss", "ssim", "--adv_aux_weight", "-1",
+                "--adv_noise_layer", "--adv_parameters", "gamma_correct",
+                "--epochs", "2", "--lr", "1e-2", "--run_name", "adv_gamma"])
+            torch.cuda.synchronize()
+            adv_s = time.perf_counter() - t0
+            attack = counts()
+            metrics = adv["run"].read_metrics()
+            pre_metrics = pre["run"].read_metrics()
+        finally:
+            os.chdir(cwd)
+    state = adv["state"]
+    ref = dict(state.ref_processor.named_parameters())
+    drifted = sorted(n for n, t in state.processor.named_parameters()
+                     if not torch.equal(t, ref[n]))
+    aux = [m["val_loss_aux"] for m in metrics if "val_loss_aux" in m]
+    emit({"phase": "cli", "pretrain_seconds": pre_s, "attack_seconds": adv_s,
+          "pretrain_val_accuracy": [m["val_accuracy"] for m in pre_metrics
+                                    if "val_accuracy" in m],
+          "attack_val_accuracy": [m["val_accuracy"] for m in metrics
+                                  if "val_accuracy" in m],
+          "val_loss_aux": aux, "drifted": drifted, "launches": attack})
+    check(len(aux) == 2 and all(np.isfinite(aux)), f"val_loss_aux rows {aux}")
+    check(set(drifted) <= {"gamma_correct", "additive_layer"}
+          and "gamma_correct" in drifted, f"drifted parameters {drifted}")
+    check(attack["ssim_aux"] > 0, f"the attack launched ssim_aux {attack}")
+    return attack
 
 
 def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
@@ -769,11 +1103,10 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
         out = pred.predict_dir(img_dir, batch_size=batch,
                                out_path=os.path.join(tmp, "pred.jsonl"))
         seconds = time.perf_counter() - t0
-        launches = counts()
-        check(launches["fused_isp_fwd_train"] == launches["fused_isp_bwd"]
-              == launches["fused_isp_bwd_res"] == 0,
-              f"serving launches only the serving kernel: {launches}")
-        launches = launches["fused_isp_fwd"]
+        served = counts()
+        check(served == launches(fwd=served["fused_isp_fwd"]),
+              f"serving launches only the serving kernel: {served}")
+        served = served["fused_isp_fwd"]
         with open(out) as fh:
             records = [json.loads(line) for line in fh]
         check(len(records) == n_images, f"{len(records)} records")
@@ -781,8 +1114,8 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
         check(logits.shape == (n_images, 9), f"logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), "finite logits")
         n_batches = -(-n_images // batch)
-        check(launches == n_batches, f"{launches} kernel launches for "
-                                     f"{n_batches} batches")
+        check(served == n_batches, f"{served} kernel launches for "
+                                   f"{n_batches} batches")
 
         plain_proc = copy.deepcopy(proc)
         plain_proc.use_kernel = False
@@ -794,12 +1127,12 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
             for i in range(0, n_images, batch)])
     err = float(np.abs(plain_logits - logits).max())
     emit({"phase": "serve", "images": n_images, "batch": batch,
-          "kernel_launches": launches, "seconds": seconds,
+          "kernel_launches": served, "seconds": seconds,
           "logit_abs_max": float(np.abs(logits).max()),
           "max_abs_err_vs_plain": err, "tol": LOGIT_TOL,
           "preds": [r["pred"] for r in records][:8]})
     check(err <= LOGIT_TOL, f"logits vs plain path: {err}")
-    return launches, pred
+    return served, pred
 
 
 def cuda_ms(fn, inputs, iters):
@@ -828,10 +1161,19 @@ def train_runner(device, batch, use_kernel=True):
     return lambda _: step(state, raw, y)
 
 
-def phase_times(device, kind, pred, trains):
+def adv_runner(device, batch, use_kernel=True):
+    """An adversarial step at ``batch`` through the kernel path (or the
+    plain path), as ``train_runner``."""
+    raw, y, proc, clf = adv_setup(device, batch)
+    _, _, state, step = adv_copy(adv_config(), proc, clf, use_kernel)
+    return lambda _: step(state, raw, y)
+
+
+def phase_times(device, kind, pred, trains, advs):
     """CUDA-event ms of each kernel's wrapper and its plain version beside
-    the kernel's bound, of ``Predictor.__call__`` and of a train step
-    (and of the plain path's train step), at B = 32 and B = 256."""
+    the kernel's bound, of ``Predictor.__call__``, of a train step and of
+    an adversarial step (and of the plain path's steps), at B = 32 and
+    B = 256."""
     params = processor(device, use_kernel=True).kernel_params()
     rows = {}
     for b in (SERVE_BATCH, BIG_BATCH):
@@ -865,20 +1207,34 @@ def phase_times(device, kind, pred, trains):
         # the recompute variant computes the residual one's function
         timed["fused_isp_bwd"] = (timed["fused_isp_bwd"][0],
                                   timed["fused_isp_bwd_res"][1])
+        pairs = [isp_pair(device, (b, 3, SIZE, SIZE)) for _ in range(2)]
+        timed["ssim_aux"] = (
+            cuda_ms(lambda a: ssim_aux_value_grad(a[0], a[1], ADV_AUX_WEIGHT),
+                    pairs, 50),
+            cuda_ms(lambda a: ssim_aux_reference(a[0], a[1], ADV_AUX_WEIGHT),
+                    pairs, 10))
+        del pairs
         kernels = {}
         for name, (k_ms, p_ms) in timed.items():
-            b_ms, b_by = bound(kind, b * SIZE * SIZE, name)
+            elems = b * SIZE * SIZE * (3 if name == "ssim_aux" else 1)
+            b_ms, b_by = bound(kind, elems, name)
             kernels[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                              "bound_by": b_by}
         s_ms = cuda_ms(pred, raws, 10)
         t_ms = cuda_ms(trains[b], [None, None], 10)
         t_plain_ms = cuda_ms(train_runner(device, b, use_kernel=False),
                              [None, None], 10)
+        a_ms = cuda_ms(advs[b], [None, None], 10)
+        a_plain_ms = cuda_ms(adv_runner(device, b, use_kernel=False),
+                             [None, None], 10)
         rows[b] = {"batch": b, "kernels": kernels, "predictor_ms": s_ms,
                    "predictor_imgs_per_s": b / s_ms * 1e3,
                    "train_step_ms": t_ms,
                    "train_imgs_per_s": b / t_ms * 1e3,
-                   "plain_path_train_step_ms": t_plain_ms}
+                   "plain_path_train_step_ms": t_plain_ms,
+                   "adversarial_step_ms": a_ms,
+                   "adversarial_imgs_per_s": b / a_ms * 1e3,
+                   "plain_path_adversarial_step_ms": a_plain_ms}
         emit({"phase": "times", "shape": [b, SIZE, SIZE], **rows[b]})
         del raws, bwd_in
     return rows
@@ -926,29 +1282,30 @@ def profile_calls(fn, arg, calls):
 PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false>",
                 "fused_isp_fwd_train": "fused_isp_fwd_kernel<true>",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
-                "fused_isp_bwd": "fused_isp_bwd_kernel<false>"}
+                "fused_isp_bwd": "fused_isp_bwd_kernel<false>",
+                "ssim_aux": "ssim_aux_kernel"}
 
 
-def phase_profile(device, pred, trains, calls=5):
-    """Device time by kernel of ``Predictor.__call__``, of a train step and
-    of the recompute backward, and the device's idle share of the wall
-    time, at B = 32 and B = 256. Returns {(what, batch): {kernel: device
-    ms per call}}."""
+def phase_profile(device, pred, trains, advs, calls=5):
+    """Device time by kernel of ``Predictor.__call__``, of a train step, of
+    an adversarial step and of the recompute backward, and the device's
+    idle share of the wall time, at B = 32 and B = 256. Returns {(what,
+    batch): {kernel: device ms per call}}."""
     params = processor(device, use_kernel=True).kernel_params()
 
     def recompute_bwd(a):
         return fused_isp_bwd(a[0], params, a[1])
 
     found = {}
-    for what, fn in (("serve", pred), ("train", None),
+    for what, fn in (("serve", pred), ("train", None), ("adversarial", None),
                      ("bwd_recompute", recompute_bwd)):
         for b in (SERVE_BATCH, BIG_BATCH):
             arg = test_mosaics((b, SIZE, SIZE)).to(device)
             if what == "bwd_recompute":
                 with torch.no_grad():
                     arg = arg, (fused_isp(arg, params) * 0.5 + 0.1)
-            kernels, busy, wall_ms = profile_calls(fn or trains[b], arg,
-                                                   calls)
+            fn_b = fn or {"train": trains, "adversarial": advs}[what][b]
+            kernels, busy, wall_ms = profile_calls(fn_b, arg, calls)
             ours = {name: sum(k[0] for k in kernels if key in k[1])
                     for name, key in PROFILE_KEYS.items()}
             ours = {name: ms for name, ms in ours.items() if ms > 0}
@@ -961,6 +1318,8 @@ def phase_profile(device, pred, trains, calls=5):
                                      for k in kernels[:10]]})
             want = {"serve": ("fused_isp_fwd",),
                     "train": ("fused_isp_fwd_train", "fused_isp_bwd_res"),
+                    "adversarial": ("fused_isp_fwd", "fused_isp_fwd_train",
+                                    "fused_isp_bwd_res", "ssim_aux"),
                     "bwd_recompute": ("fused_isp_bwd",)}[what]
             check(all(n in ours for n in want),
                   f"the {what} profile shows {want}")
@@ -979,23 +1338,30 @@ def main():
     phase_build()
     max_err = {"fused_isp_fwd": phase_kernel_vs_plain(device),
                **phase_train_kernels_vs_plain(device)}
+    max_err["ssim_aux"] = phase_ssim_kernel_vs_plain(device)
     serve_launches, pred = phase_serve(device)
-    launches = {"fused_isp_fwd": serve_launches}
+    path_launches = {"fused_isp_fwd": serve_launches}
     main_path, recompute = phase_train(device)
-    launches.update(fused_isp_fwd_train=main_path["fused_isp_fwd_train"],
-                    fused_isp_bwd_res=main_path["fused_isp_bwd_res"],
-                    fused_isp_bwd=recompute["fused_isp_bwd"])
+    path_launches.update(
+        fused_isp_fwd_train=main_path["fused_isp_fwd_train"],
+        fused_isp_bwd_res=main_path["fused_isp_bwd_res"],
+        fused_isp_bwd=recompute["fused_isp_bwd"],
+        ssim_aux=phase_adversarial(device)["ssim_aux"])
+    phase_cli(device)
     trains = {b: train_runner(device, b) for b in (SERVE_BATCH, BIG_BATCH)}
-    rows = phase_times(device, kind, pred, trains)
-    device_ms = phase_profile(device, pred, trains)
+    advs = {b: adv_runner(device, b) for b in (SERVE_BATCH, BIG_BATCH)}
+    rows = phase_times(device, kind, pred, trains, advs)
+    device_ms = phase_profile(device, pred, trains, advs)
     entries = []
     for name, (replaces, source) in KERNELS.items():
         r = rows[SERVE_BATCH]["kernels"][name]
-        where = {"fused_isp_fwd": "serve",
-                 "fused_isp_bwd": "bwd_recompute"}.get(name, "train")
+        where = {"fused_isp_fwd": "serve", "fused_isp_bwd": "bwd_recompute",
+                 "ssim_aux": "adversarial"}.get(name, "train")
+        shape = ([SERVE_BATCH, 3, SIZE, SIZE] if name == "ssim_aux"
+                 else [SERVE_BATCH, SIZE, SIZE])
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": max_err[name],
             # ms: CUDA events around the wrapper call (parameter packing,
             # and for the backward the partials' sum and unpacking,
@@ -1005,7 +1371,7 @@ def main():
             "device_ms": device_ms[where, SERVE_BATCH].get(name),
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "shape": [SERVE_BATCH, SIZE, SIZE], "card": smi})
+            "shape": shape, "card": smi})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,15 @@
 
 The PyTorch port of ``raw2logit_tpu`` (the JAX package stays the
 reference). Layout mirrors the JAX package: ``ops/``, ``isp/``,
-``models/``, ``data/``, ``serving.py``; the hand-written CUDA kernels
-live in ``csrc/`` and their Python wrappers in ``kernels/``.
+``models/``, ``data/``, ``augment.py``, ``losses.py``, ``training/``
+(the steps, checkpoints and the CLI ``training/train.py``),
+``tracking/``, ``serving.py``; the hand-written CUDA kernels live in
+``csrc/`` and their Python wrappers in ``kernels/``.
 
 Modules run planar NCHW inside. Entry points (``Predictor``, the module
-factories) run on ``cuda`` unless the caller passes ``device="cpu"``,
-and raise when no device is given and CUDA is missing.
+factories, the CLI) run on ``cuda`` unless the caller passes
+``device="cpu"``, and raise when no device is given and CUDA is
+missing.
 """
 
 import torch

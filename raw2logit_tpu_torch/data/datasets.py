@@ -1,7 +1,7 @@
-"""Dataset constants, image loading and the synthetic offline datasets
-(port of the parts of ``raw2logit_tpu/data/datasets.py`` that serving
-uses). Datasets return (H, W) float32 numpy mosaics; all processing
-happens on the device.
+"""Dataset constants, image loading, the synthetic offline datasets and
+``Subset`` (port of the parts of ``raw2logit_tpu/data/datasets.py`` that
+serving and the training CLI use). Datasets return (H, W) float32
+numpy mosaics; all processing happens on the device.
 """
 
 import os
@@ -62,6 +62,30 @@ def load_image(path):
 def list_images_in_dir(path):
     return [os.path.join(path, f) for f in sorted(os.listdir(path))
             if f.rsplit(".", 1)[-1].lower() in IMAGE_FILE_TYPES]
+
+
+class Subset:
+    """View of a dataset through an index list; other attributes (task,
+    classes, camera_parameters) are the wrapped dataset's."""
+
+    def __init__(self, dataset, indices=None):
+        self.dataset = dataset
+        self.indices = (list(indices) if indices is not None
+                        else list(range(len(dataset))))
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __repr__(self):
+        return f"Subset[{len(self)}] of {self.dataset!r}"
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+    def __getattr__(self, name):
+        if name in ("dataset", "indices"):  # not yet set while unpickling
+            raise AttributeError(name)
+        return getattr(self.dataset, name)
 
 
 class _SyntheticRaw:

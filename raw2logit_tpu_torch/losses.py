@@ -12,6 +12,8 @@ Segmentation logits are NCHW: (B, 1, H, W) against (B, H, W) masks.
 import torch
 import torch.nn.functional as F
 
+from raw2logit_tpu_torch.ops.ssim import ssim
+
 
 def cross_entropy_loss(logits, labels):
     """Mean softmax cross-entropy with integer labels."""
@@ -47,18 +49,19 @@ def weighted_loss(loss_fn, weight=1.0):
 
 def aux_loss(regularization, weight=1.0):
     """AuxLoss: compare the adversarial processor's RGB output with the
-    frozen default processor's, which gets no gradient. 'l2' only: the
-    differentiable SSIM ('ssim') comes with the adversarial slice of the
-    port, with its fused kernel."""
-    if regularization == "ssim":
-        raise NotImplementedError(
-            "aux_loss('ssim') comes with the adversarial slice of the port "
-            "(ops/ssim.py and the SSIM-aux kernel); use 'l2'")
-    if regularization != "l2":
+    frozen default processor's, which gets no gradient: 'l2' (sum of
+    squared differences) or 'ssim' (``ops.ssim.ssim``, the similarity
+    itself: minimising ``weight * SSIM`` with a positive weight drives the
+    outputs APART, so forensics runs with a negative weight)."""
+    if regularization == "l2":
+        reg = l2_regularization
+    elif regularization == "ssim":
+        reg = ssim
+    else:
         raise NotImplementedError(regularization)
 
     def _fn(x_reference, x_processed):
-        return weight * l2_regularization(x_reference.detach(), x_processed)
+        return weight * reg(x_reference.detach(), x_processed)
     return _fn
 
 

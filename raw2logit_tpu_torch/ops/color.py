@@ -11,11 +11,14 @@ from raw2logit_tpu_torch.ops import constants
 
 
 def _mix(img, m):
-    """out_k = sum_c m[k, c] * img_c over the colour axis (dim -3), in
-    contiguous NCHW (einsum returns channels-last strides, on which the
-    CPU convolution backward of PyTorch 2.13 crashes)."""
+    """out_k = sum_c m[k, c] * img_c over the colour axis (dim -3), as
+    elementwise products and sums: no matrix product, so no TF32 on the
+    card in either direction (the JAX package pins these einsums to
+    ``Precision.HIGHEST``), and a contiguous NCHW result."""
     m = torch.as_tensor(m, dtype=img.dtype, device=img.device).reshape(3, 3)
-    return torch.einsum("...chw,kc->...khw", img, m).contiguous()
+    c0, c1, c2 = img.unbind(-3)
+    return torch.stack([m[k, 0] * c0 + m[k, 1] * c1 + m[k, 2] * c2
+                        for k in range(3)], dim=-3)
 
 
 def white_balance(rgb, wb):

@@ -7,12 +7,71 @@ Padding modes:
   * ``zero``    - torch Conv2d default
   * ``reflect`` - torch padding_mode='reflect' / np.pad 'reflect'
                   (edge NOT repeated: dcb|abcd)
+
+The JAX package pins these convolutions to ``Precision.HIGHEST``; here
+``conv2d_f32`` computes them in full float32 on the card whatever TF32
+settings the caller has (cuDNN runs float32 convolutions in TF32 by
+default).
 """
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 _PAD_MODES = {"zero": "constant", "reflect": "reflect"}
+
+
+@contextlib.contextmanager
+def full_float32():
+    """TF32 off for cuDNN convolutions and cuBLAS matrix products while
+    the block runs; the caller's settings are restored afterwards."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """``F.conv2d`` (no padding) whose forward and backward both run
+    under ``full_float32``: a backward runs after the caller's block has
+    ended, so a context around the forward alone would leave it in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.groups = groups
+        with full_float32():
+            return F.conv2d(x, weight, groups=groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx = dw = None
+        with full_float32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv2d_input(x.shape, weight, g,
+                                                groups=ctx.groups)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv2d_weight(x, weight.shape, g,
+                                                 groups=ctx.groups)
+        return dx, dw, None
+
+
+def conv2d_f32(x, weight, groups=1):
+    """``F.conv2d(x, weight, groups=groups)`` without padding, in full
+    float32 on the card (forward and backward). On the CPU, where there
+    is no TF32, it is ``F.conv2d`` itself."""
+    if x.device.type == "cpu":
+        return F.conv2d(x, weight, groups=groups)
+    return _Conv2dF32.apply(x, weight, groups)
 
 
 def conv2d_single(x, kernel, pad_mode="zero"):
@@ -29,11 +88,11 @@ def conv2d_single(x, kernel, pad_mode="zero"):
     xp = x.reshape(-1, 1, *x.shape[-2:])
     xp = F.pad(xp, (kw // 2, kw // 2, kh // 2, kh // 2),
                mode=_PAD_MODES[pad_mode])
-    out = F.conv2d(xp, kernel.reshape(1, 1, kh, kw))
+    out = conv2d_f32(xp, kernel.reshape(1, 1, kh, kw))
     return out.reshape(*lead, *out.shape[-2:])
 
 
 def debayer_conv(mosaic, weight):
     """Full 3x3 conv over the scattered (B, 3, H, W) mosaic with torch
     'reflect' padding; ``weight`` is OIHW (co, ci, 3, 3)."""
-    return F.conv2d(F.pad(mosaic, (1, 1, 1, 1), mode="reflect"), weight)
+    return conv2d_f32(F.pad(mosaic, (1, 1, 1, 1), mode="reflect"), weight)

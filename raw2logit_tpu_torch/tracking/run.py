@@ -1,0 +1,99 @@
+"""Local run store (port of the local part of
+``raw2logit_tpu/tracking/run.py``).
+
+Runs live under ``<root>/<experiment>/<run_name>/`` with the JAX
+package's layout: ``params.json``, ``metrics.jsonl`` (one JSON record per
+``log_metrics``), ``state_dict.json``, and artifact directories such as
+``checkpoints/``. A child run (one per fold) is a directory inside its
+parent's. Mirroring to an MLflow server (``tracking_uri``) comes with the
+tracking slice of the port (ROADMAP Queue 1 item 11) and raises here.
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+
+
+def _to_jsonable(v):
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (list, tuple)):
+        return [_to_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _to_jsonable(x) for k, x in v.items()}
+    return v
+
+
+def _safe(s):
+    return "".join(c if c.isalnum() or c in "-_." else "_" for c in s)
+
+
+class Run:
+    def __init__(self, experiment_name, run_name, root="results/runs",
+                 parent=None, tracking_uri=None):
+        if tracking_uri:
+            raise NotImplementedError(
+                "mirroring runs to an MLflow server (tracking_uri) comes with "
+                "the tracking slice of the port (ROADMAP Queue 1 item 11); "
+                "runs are recorded locally")
+        self.experiment_name = experiment_name
+        self.run_name = run_name
+        if parent is not None:
+            self.dir = os.path.join(parent.dir, _safe(run_name))
+        else:
+            self.dir = os.path.join(root, _safe(experiment_name),
+                                    _safe(run_name))
+        os.makedirs(self.dir, exist_ok=True)
+        self._metrics_fh = None  # opened on the first log_metrics
+
+    def log_params(self, params):
+        """Merge ``params`` into ``params.json``."""
+        path = os.path.join(self.dir, "params.json")
+        merged = {}
+        if os.path.exists(path):
+            with open(path) as fh:
+                merged = json.load(fh)
+        merged.update(_to_jsonable(params))
+        with open(path, "w") as fh:
+            json.dump(merged, fh, indent=2, default=str)
+
+    def log_metrics(self, metrics, step=None):
+        """Append one record {time, step, **metrics} to ``metrics.jsonl``."""
+        rec = {"time": time.time(), "step": step}
+        rec.update({k: _to_jsonable(v) for k, v in metrics.items()})
+        if self._metrics_fh is None:
+            self._metrics_fh = open(
+                os.path.join(self.dir, "metrics.jsonl"), "a")
+        self._metrics_fh.write(json.dumps(rec, default=str) + "\n")
+        self._metrics_fh.flush()
+
+    def log_state_dict(self, state_dict, name="state_dict.json"):
+        with open(os.path.join(self.dir, name), "w") as fh:
+            json.dump(_to_jsonable(state_dict), fh, indent=2, default=str)
+
+    def artifact_dir(self, *parts):
+        d = os.path.join(self.dir, *parts)
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def child(self, run_name):
+        """A nested run (one per fold), in a directory of this run's."""
+        return Run(self.experiment_name, run_name, parent=self)
+
+    def close(self):
+        if self._metrics_fh is not None:
+            self._metrics_fh.close()
+            self._metrics_fh = None
+
+    def read_metrics(self):
+        path = os.path.join(self.dir, "metrics.jsonl")
+        if not os.path.exists(path):
+            return []
+        with open(path) as fh:
+            return [json.loads(line) for line in fh]

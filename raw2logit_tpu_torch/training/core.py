@@ -10,15 +10,25 @@ into jitted programs, masks and pytrees is PyTorch idiom here:
   * freezing (``freeze_processor`` / ``freeze_classifier``) sets
     ``requires_grad=False`` and leaves those parameters out of the
     optimizer, where JAX labels them for ``optax.set_to_zero``;
-  * a frozen module runs in eval mode, so its BN statistics do not move.
+  * a frozen module runs in eval mode, so its BN statistics do not move;
+  * adversarial mode (drift forensics) keeps a frozen deep copy of the
+    processor as the reference; the processor runs in eval mode (its BN
+    statistics stay frozen), only the parameters whose names contain
+    ``adv_parameters`` train, and the aux term compares the processor's
+    output with the reference's. With ``adv_aux_loss='ssim'`` and the
+    fused-kernel processor, the aux value and its gradient come from the
+    SSIM aux kernel (``kernels.SSIMAux``), where the JAX package's staged
+    step takes its Pallas kernel;
+  * augmentation draws once per step from the step's ``torch.Generator``
+    and is replayed on segmentation masks (``augment.py``).
 
 ``make_staged_train_step`` (the same update split into programs to fit a
 TPU compile budget) and the flat and split optimizer forms (TPU
 workarounds with the same update) are not ported: this step computes
-their result. Augmentation and adversarial training wait for the slices
-that port them, and raise here.
+their result.
 """
 
+import copy
 import dataclasses
 import math
 from typing import Any
@@ -26,6 +36,8 @@ from typing import Any
 import torch
 
 from raw2logit_tpu_torch import losses as L
+from raw2logit_tpu_torch.augment import get_augmentation
+from raw2logit_tpu_torch.kernels.ssim_aux import SSIMAux
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,24 +60,15 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The modules (updated in place), their optimizer and scheduler, and
-    the number of steps taken."""
+    """The modules (updated in place), their optimizer and scheduler, the
+    number of steps taken and, in adversarial mode, the frozen reference
+    processor (eval mode, no gradients)."""
     step: int
     processor: Any
     classifier: Any
     optimizer: torch.optim.Optimizer
     scheduler: Any = None
-
-
-def _check_supported(cfg):
-    if cfg.augmentation != "none" or cfg.augmentation_on_eval:
-        raise NotImplementedError(
-            "augmentation comes with the data and augmentation slice of the "
-            "port; use augmentation='none'")
-    if cfg.adv_training:
-        raise NotImplementedError(
-            "adversarial training comes with the adversarial slice of the "
-            "port")
+    ref_processor: Any = None
 
 
 def make_optimizer(cfg, processor, classifier):
@@ -76,8 +79,11 @@ def make_optimizer(cfg, processor, classifier):
     before ``optax.adam`` in the JAX package; betas (0.9, 0.999) and eps
     1e-8 are optax's defaults. ``lr_schedule="cosine"`` is optax's
     ``cosine_decay_schedule(lr, total_steps)``: step k (from 0) uses
-    lr * (1 + cos(pi * min(k, T) / T)) / 2. Frozen modules get
-    ``requires_grad=False`` and stay out of the optimizer."""
+    lr * (1 + cos(pi * min(k, T) / T)) / 2. Frozen modules, and in
+    adversarial mode the processor's parameters whose names do not contain
+    ``adv_parameters`` (unless it is 'all'), get ``requires_grad=False``
+    and stay out of the optimizer."""
+    targeted = cfg.adv_training and cfg.adv_parameters != "all"
     params = []
     for module, frozen in ((processor, cfg.freeze_processor),
                            (classifier, cfg.freeze_classifier)):
@@ -85,10 +91,16 @@ def make_optimizer(cfg, processor, classifier):
             continue
         if frozen:
             module.requires_grad_(False)
-        else:
-            params += [p for p in module.parameters() if p.requires_grad]
+            continue
+        for name, p in module.named_parameters():
+            if (targeted and module is processor
+                    and cfg.adv_parameters not in name):
+                p.requires_grad_(False)
+            elif p.requires_grad:
+                params.append(p)
     if not params:
-        raise ValueError("no parameters to train: both modules are frozen")
+        raise ValueError("no parameters to train: both modules are frozen, "
+                         "or no processor parameter matches adv_parameters")
     optimizer = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.lr_schedule == "constant":
@@ -112,31 +124,55 @@ def task_loss_fn(cfg):
 
 def create_train_state(cfg, processor, classifier):
     """The state of a run that starts from the modules' current weights
-    (``processor`` may be None when the classifier takes RGB)."""
-    _check_supported(cfg)
+    (``processor`` may be None when the classifier takes RGB). In
+    adversarial mode the reference processor is a deep copy of
+    ``processor`` as it is now."""
+    get_augmentation(cfg.augmentation)  # raises on an unknown kind
+    ref = None
+    if cfg.adv_training:
+        if processor is None:
+            raise ValueError("adversarial training needs a processor")
+        ref = copy.deepcopy(processor).eval().requires_grad_(False)
     optimizer, scheduler = make_optimizer(cfg, processor, classifier)
     return TrainState(step=0, processor=processor, classifier=classifier,
-                      optimizer=optimizer, scheduler=scheduler)
+                      optimizer=optimizer, scheduler=scheduler,
+                      ref_processor=ref)
 
 
-def _forward(cfg, processor, classifier, raw, train):
-    """processor -> classifier, each in train mode only while it is
-    trained (the reference keeps frozen parts in eval mode, so their BN
-    statistics do not move). Returns (logits, rgb)."""
+def _forward(cfg, processor, classifier, raw, train, generator):
+    """processor -> augmentation -> classifier, each module in train mode
+    only while it is trained (the reference keeps frozen parts, and the
+    processor in adversarial mode, in eval mode, so their BN statistics
+    do not move). Returns (logits, rgb, the augmentation's draws or
+    None)."""
     if processor is not None:
         processor.train(train and not cfg.freeze_processor
                         and not cfg.adv_training)
         rgb, _ = processor(raw)
     else:
         rgb = raw
+    x, draws = rgb, None
+    aug = get_augmentation(cfg.augmentation)
+    if aug is not None and (train or cfg.augmentation_on_eval):
+        if generator is None:
+            raise ValueError(f"augmentation {cfg.augmentation!r} draws from "
+                             f"the step's generator; pass one")
+        draws = aug.draw(generator, rgb)
+        x = aug.apply(draws, rgb)
     classifier.train(train and not cfg.freeze_classifier)
-    return classifier(rgb), rgb
+    return classifier(x), rgb, draws
 
 
-def _task_logits(cfg, logits):
-    if cfg.task == "segmentation" and logits.shape[1] == 1:
-        return logits[:, 0]
-    return logits
+def _task_targets(cfg, logits, y, draws):
+    """Segmentation logits (B, 1, H, W) -> (B, H, W), and the masks with
+    the image's geometric augmentation replayed."""
+    if cfg.task != "segmentation":
+        return logits, y
+    if draws is not None:
+        y = get_augmentation(cfg.augmentation).apply(draws, y, is_mask=True)
+    if logits.shape[1] == 1:
+        logits = logits[:, 0]
+    return logits, y
 
 
 def _step_metrics(cfg, logits, y):
@@ -153,6 +189,13 @@ def _check_modules(state, processor, classifier):
                          "step was made for")
 
 
+def _reference_rgb(state, raw):
+    """The frozen reference processor's output (under ``no_grad``, so the
+    fused-kernel processor launches its serving kernel)."""
+    with torch.no_grad():
+        return state.ref_processor(raw)[0]
+
+
 def make_train_step(cfg, processor, classifier):
     """``step(state, raw, y, generator=None)`` -> metrics dict of device
     tensors (``loss``, ``loss_aux``, ``accuracy`` or ``iou_score``).
@@ -161,18 +204,32 @@ def make_train_step(cfg, processor, classifier):
     None); y: integer labels (B,) or masks (B, H, W). The step updates
     ``state``'s modules, optimizer, scheduler and step count in place,
     leaves the gradients in ``.grad``, and does not synchronise with the
-    host. ``generator`` is where augmentation will draw from; it is
-    unused while augmentation is 'none'."""
-    _check_supported(cfg)
+    host unless an augmentation draws. ``generator`` (a CPU
+    ``torch.Generator``) is where augmentation draws from. In adversarial
+    mode ``loss`` is the task loss plus ``loss_aux``."""
     loss_fn = task_loss_fn(cfg)
+    aux_fn = (L.aux_loss(cfg.adv_aux_loss, cfg.adv_aux_weight)
+              if cfg.adv_training else None)
+    # the JAX package's staged step takes its SSIM kernel exactly here
+    aux_kernel = (aux_fn is not None and cfg.adv_aux_loss == "ssim"
+                  and getattr(processor, "use_kernel", False)
+                  and not getattr(processor, "track_stages", False))
 
     def step(state, raw, y, generator=None):
         _check_modules(state, processor, classifier)
         state.optimizer.zero_grad(set_to_none=True)
-        logits, _ = _forward(cfg, state.processor, state.classifier, raw,
-                             train=True)
-        logits = _task_logits(cfg, logits)
+        logits, rgb, draws = _forward(cfg, state.processor,
+                                      state.classifier, raw, True,
+                                      generator)
+        logits, y = _task_targets(cfg, logits, y, draws)
         loss = loss_fn(logits, y)
+        loss_aux = torch.zeros((), device=loss.device)
+        if aux_fn is not None:
+            ref_rgb = _reference_rgb(state, raw)
+            loss_aux = (SSIMAux.apply(ref_rgb, rgb.contiguous(),
+                                      cfg.adv_aux_weight)
+                        if aux_kernel else aux_fn(ref_rgb, rgb))
+            loss = loss + loss_aux
         loss.backward()
         state.optimizer.step()
         if state.scheduler is not None:
@@ -180,7 +237,7 @@ def make_train_step(cfg, processor, classifier):
         state.step += 1
         mets = _step_metrics(cfg, logits.detach(), y)
         mets["loss"] = loss.detach()
-        mets["loss_aux"] = torch.zeros((), device=loss.device)
+        mets["loss_aux"] = loss_aux.detach()
         return mets
 
     return step
@@ -188,18 +245,27 @@ def make_train_step(cfg, processor, classifier):
 
 def make_eval_step(cfg, processor, classifier):
     """``step(state, raw, y, generator=None)`` -> (logits, metrics): both
-    modules in eval mode, no gradients."""
-    _check_supported(cfg)
+    modules in eval mode, no gradients; augmentation only with
+    ``augmentation_on_eval``. In adversarial mode the loss includes the
+    aux term, also reported as ``loss_aux`` (through ``ops.ssim`` or l2,
+    as the JAX eval step)."""
     loss_fn = task_loss_fn(cfg)
+    aux_fn = (L.aux_loss(cfg.adv_aux_loss, cfg.adv_aux_weight)
+              if cfg.adv_training else None)
 
     @torch.no_grad()
     def step(state, raw, y, generator=None):
         _check_modules(state, processor, classifier)
-        logits, _ = _forward(cfg, state.processor, state.classifier, raw,
-                             train=False)
-        logits = _task_logits(cfg, logits)
+        logits, rgb, draws = _forward(cfg, state.processor,
+                                      state.classifier, raw, False,
+                                      generator)
+        logits, y = _task_targets(cfg, logits, y, draws)
         mets = _step_metrics(cfg, logits, y)
-        mets["loss"] = loss_fn(logits, y)
+        loss = loss_fn(logits, y)
+        if aux_fn is not None:
+            mets["loss_aux"] = aux_fn(_reference_rgb(state, raw), rgb)
+            loss = loss + mets["loss_aux"]
+        mets["loss"] = loss
         return logits, mets
 
     return step

@@ -1,0 +1,404 @@
+"""The training CLI (port of ``raw2logit_tpu/training/train.py``):
+
+    python -m raw2logit_tpu_torch.training.train \
+        --dataset SyntheticMicroscopy --use_pallas --epochs 2 \
+        --batch_size 32 [--device cpu]
+
+dataset -> k-fold -> per fold: processor and classifier -> (adversarial
+setup) -> train and validation epochs -> checkpoints, recorded in the
+local run store under ``results/runs/<experiment>/<run>/<run>_<fold>/``.
+The parser keeps the JAX package's whole flag surface and adds
+``--device`` (``cuda`` unless given; raises without CUDA). It runs the
+parametrized ISP with classification, plain, frozen or adversarial; the
+options that later slices port raise ``NotImplementedError`` naming the
+ROADMAP Queue 1 item that ports them.
+"""
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+
+from raw2logit_tpu_torch import resolve_device
+from raw2logit_tpu_torch.data import Loader, Subset, get_dataset, k_fold
+from raw2logit_tpu_torch.isp import ParametrizedProcessing
+from raw2logit_tpu_torch.models import resnet_model
+from raw2logit_tpu_torch.tracking import Run
+from raw2logit_tpu_torch.training import checkpoint as ckpt
+from raw2logit_tpu_torch.training.core import (TrainConfig, create_train_state,
+                                               make_eval_step,
+                                               make_train_step)
+
+
+def str2bool(s):
+    return s == "True" or s is True
+
+
+def build_parser():
+    """The JAX package's CLI surface (the reference's train.py flags and
+    its TPU extras), and ``--device``."""
+    p = argparse.ArgumentParser(description="classification_task")
+    p.add_argument("--tracking_uri", type=str, default=None,
+                   help="MLflow server URI (not ported yet: raises; runs "
+                        "are always recorded under results/runs)")
+    p.add_argument("--processor_uri", type=str, default=None,
+                   help="processor state-dict file to load the processor "
+                        "from (a run's checkpoints/processor.pt)")
+    p.add_argument("--classifier_uri", type=str, default=None,
+                   help="classifier state-dict file to load the classifier "
+                        "from (a run's checkpoints/classifier.pt)")
+    p.add_argument("--state_dict_uri", type=str, default=None,
+                   help="path of a state_dict.json with train/valid indices")
+
+    p.add_argument("--experiment_name", type=str,
+                   default="classification learnable pipeline")
+    p.add_argument("--run_name", type=str, default="test run")
+
+    p.add_argument("--log_model", type=str2bool, default=True)
+    p.add_argument("--save_locally", action="store_true",
+                   help="additionally copy the final per-fold state to "
+                        "saved_models/<experiment>/<run>_<fold>")
+
+    p.add_argument("--track_processing", action="store_true")
+    p.add_argument("--track_processing_gradients", action="store_true")
+    p.add_argument("--track_save_tensors", action="store_true")
+    p.add_argument("--track_predictions", action="store_true")
+    p.add_argument("--track_n_images", type=int, default=5)
+    p.add_argument("--track_every_epoch", action="store_true")
+
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--dataset", type=str, default="Microscopy",
+                   choices=["Drone", "DroneSegmentation", "Microscopy",
+                            "SyntheticMicroscopy", "SyntheticDrone"])
+    p.add_argument("--I_ratio", "--iso", dest="I_ratio", type=float,
+                   default=1.0,
+                   help="exposure-intensity variant of the dataset")
+    p.add_argument("--n_splits", type=int, default=1)
+    p.add_argument("--train_size", type=float, default=0.8)
+
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--augmentation", type=str, default="none",
+                   choices=["none", "weak", "strong"])
+    p.add_argument("--check_val_every_n_epoch", type=int, default=1)
+
+    p.add_argument("--processing_mode", type=str, default="parametrized",
+                   choices=["parametrized", "static", "neural_network",
+                            "none"])
+
+    p.add_argument("--classifier_network", type=str, default="ResNet18",
+                   choices=["ResNet18", "ResNet34", "Resnet50"])
+    p.add_argument("--classifier_pretrained", action="store_true")
+    p.add_argument("--smp_encoder", type=str, default="resnet34")
+
+    p.add_argument("--freeze_processor", action="store_true")
+    p.add_argument("--freeze_classifier", action="store_true")
+
+    p.add_argument("--sp_debayer", type=str, default="bilinear",
+                   choices=["bilinear", "malvar2004", "menon2007"])
+    p.add_argument("--sp_sharpening", type=str, default="sharpening_filter",
+                   choices=["sharpening_filter", "unsharp_masking"])
+    p.add_argument("--sp_denoising", type=str, default="gaussian_denoising",
+                   choices=["gaussian_denoising", "median_denoising",
+                            "fft_denoising"])
+
+    p.add_argument("--adv_training", action="store_true")
+    p.add_argument("--adv_aux_weight", type=float, default=1.0)
+    p.add_argument("--adv_aux_loss", type=str, default="ssim",
+                   choices=["l2", "ssim"])
+    p.add_argument("--adv_noise_layer", action="store_true")
+    p.add_argument("--adv_track_differences", action="store_true")
+    p.add_argument("--adv_parameters", default="all",
+                   choices=["all", "black_level", "white_balance",
+                            "colour_correction", "gamma_correct",
+                            "sharpening_filter", "gaussian_blur",
+                            "additive_layer"])
+
+    p.add_argument("--cache_downloaded_models", type=str2bool, default=True,
+                   help="accepted for CLI parity; the local run store never "
+                        "downloads")
+    p.add_argument("--test_run", action="store_true")
+
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="devices to train on (the port trains on one)")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="task-model compute dtype (ISP always float32)")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="the fused ISP kernels (parametrized mode, no stage "
+                        "tracking): ParametrizedProcessing(use_kernel=True)")
+    p.add_argument("--precompute_static", action="store_true",
+                   help="static mode only: run the static pipeline over the "
+                        "dataset once")
+    p.add_argument("--weight_decay", type=float, default=0.0,
+                   help="coupled L2 weight decay (torch.optim.Adam "
+                        "semantics)")
+    p.add_argument("--lr_schedule", type=str, default="constant",
+                   choices=["constant", "cosine"],
+                   help="cosine decays to 0 over the fold's total steps")
+    p.add_argument("--profile", action="store_true",
+                   help="trace a few train steps into the run dir")
+    p.add_argument("--staged_step", action="store_true",
+                   help="the JAX package's four-program staged step (a TPU "
+                        "compile-budget workaround)")
+    p.add_argument("--fuse_opt", action="store_true",
+                   help="with --staged_step: fold Adam into its programs")
+    p.add_argument("--checkpoint_every_n_epochs", type=int, default=0,
+                   help="periodic checkpointing for failure recovery "
+                        "(0 = only final)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume each fold from its latest periodic "
+                        "checkpoint if present")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where to train: cuda (the default; raises without "
+                        "CUDA) or cpu")
+    return p
+
+
+def _refuse_unported(args):
+    """Raise NotImplementedError for an option that a later slice of the
+    port brings, naming the ROADMAP Queue 1 item."""
+    unported = (
+        (args.processing_mode == "static" or args.precompute_static,
+         "--processing_mode static and --precompute_static come with the "
+         "static-ISP slice (ROADMAP Queue 1 item 6)"),
+        (args.processing_mode in ("neural_network", "none"),
+         f"--processing_mode {args.processing_mode} comes with the neural "
+         f"and identity ISP slice (ROADMAP Queue 1 item 8)"),
+        (args.track_processing or args.track_processing_gradients
+         or args.track_save_tensors or args.track_predictions
+         or args.track_every_epoch,
+         "--track_* (tracked images) come with the tracking slice (ROADMAP "
+         "Queue 1 item 11)"),
+        (args.classifier_pretrained,
+         "--classifier_pretrained (ImageNet weights) comes with ROADMAP "
+         "Queue 1 item 11"),
+        (args.profile, "--profile comes with ROADMAP Queue 1 item 11"),
+        (args.staged_step or args.fuse_opt,
+         "--staged_step and --fuse_opt select TPU compile-budget "
+         "workarounds; the port's one train step computes their update "
+         "(ROADMAP Queue 1 item 3)"),
+        (args.compute_dtype == "bfloat16",
+         "--compute_dtype bfloat16 comes with ROADMAP Queue 1 item 11"),
+        (args.n_devices not in (None, 1),
+         "training on several GPUs comes with ROADMAP Queue 1 item 10"),
+    )
+    for refused, why in unported:
+        if refused:
+            raise NotImplementedError(why)
+
+
+def build_processor(args, dataset, image_size, device):
+    return ParametrizedProcessing(
+        camera_parameters=dataset.camera_parameters,
+        batch_norm_output=True,
+        additive_layer=args.adv_training and args.adv_noise_layer,
+        image_size=image_size, use_kernel=args.use_pallas, device=device)
+
+
+def build_classifier(args, dataset, device, seed):
+    return resnet_model(model=args.classifier_network.lower(),
+                        fc_out_features=len(dataset.classes), device=device,
+                        generator=torch.Generator(device).manual_seed(seed))
+
+
+def _epoch_means(metrics, weights=None):
+    """Per key, the mean of the steps' values (weighted by ``weights``)."""
+    w = np.ones(len(metrics)) if weights is None else np.asarray(
+        weights, np.float64)
+    w = w / w.sum()
+    return {k: float(np.sum(w * np.asarray([float(m[k]) for m in metrics])))
+            for k in metrics[0]}
+
+
+def run_train(args):
+    print(args)
+    _refuse_unported(args)
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    training_mode = "adversarial" if args.adv_training else "default"
+    dataset = get_dataset(args.dataset)
+    print(f"dataset: {type(dataset).__name__}[{len(dataset)}]")
+    print(f"task: {dataset.task}")
+    print(f"mode: {training_mode} training")
+    print(f"# cross-validation subsets: {args.n_splits}")
+    if dataset.task != "classification":
+        raise NotImplementedError("segmentation comes with the segmentation "
+                                  "slice (ROADMAP Queue 1 item 7)")
+
+    if args.adv_training:
+        assert args.processing_mode == "parametrized", \
+            "processing_mode should be 'parametrized' for adversarial training"
+        assert args.freeze_classifier, \
+            "classifier should be frozen for adversarial training"
+        assert not args.freeze_processor, \
+            "processor should not be frozen for adversarial training"
+    assert not (args.freeze_processor and args.freeze_classifier), \
+        "Likely no parameters to train."
+
+    idxs_kfold = k_fold(dataset, n_splits=args.n_splits, seed=args.seed,
+                        train_size=args.train_size)
+    image_size = dataset[0][0].shape[0]
+
+    # cosine horizon: steps per fold (the train loader drops the ragged
+    # tail)
+    n_train = (args.batch_size if args.test_run
+               else int(len(dataset) * args.train_size))
+    steps_per_epoch = max(1, n_train // args.batch_size)
+    cfg = TrainConfig(
+        task=dataset.task, lr=args.lr, lr_schedule=args.lr_schedule,
+        total_steps=steps_per_epoch * args.epochs,
+        weight_decay=args.weight_decay, augmentation=args.augmentation,
+        freeze_processor=args.freeze_processor,
+        freeze_classifier=args.freeze_classifier,
+        adv_training=args.adv_training, adv_aux_weight=args.adv_aux_weight,
+        adv_aux_loss=args.adv_aux_loss,
+        adv_parameters=args.adv_parameters or "all",
+        loss_weight=-1.0 if args.adv_training else 1.0)
+
+    parent = Run(args.experiment_name, args.run_name,
+                 tracking_uri=args.tracking_uri)
+    results = []
+
+    for k_iter, (train_indices, valid_indices) in enumerate(idxs_kfold):
+        print(f"K_fold subset: {k_iter + 1}/{args.n_splits}")
+        processor = build_processor(args, dataset, image_size, device)
+        classifier = build_classifier(args, dataset, device, args.seed)
+
+        state_dict = dict(vars(args))
+        if args.state_dict_uri:
+            with open(args.state_dict_uri) as fh:
+                loaded = json.load(fh)
+            train_indices = loaded["train_indices"]
+            valid_indices = loaded["valid_indices"]
+            state_dict.update(loaded)
+        state_dict["classes"] = dataset.classes
+        state_dict["train_indices"] = list(map(int, train_indices))
+        state_dict["valid_indices"] = list(map(int, valid_indices))
+        state_dict["elements in train set"] = len(train_indices)
+        state_dict["elements in test set"] = len(valid_indices)
+
+        if args.test_run:
+            train_indices = train_indices[: args.batch_size]
+            valid_indices = valid_indices[: args.batch_size]
+
+        train_loader = Loader(Subset(dataset, train_indices), args.batch_size,
+                              shuffle=True, seed=args.seed)
+        assert len(train_loader) > 0, (
+            f"train split ({len(train_indices)} items) is smaller than "
+            f"--batch_size {args.batch_size}; nothing would train")
+        valid_loader = Loader(Subset(dataset, valid_indices), args.batch_size,
+                              shuffle=False, drop_last=False)
+
+        run = parent.child(f"{args.run_name}_{k_iter}")
+        if not args.resume:
+            # a fresh run into a reused directory must not append onto an
+            # earlier attempt's metrics
+            stale_metrics = os.path.join(run.dir, "metrics.jsonl")
+            if os.path.exists(stale_metrics):
+                os.remove(stale_metrics)
+        run.log_state_dict(state_dict)
+        run.log_params({"dataset": args.dataset,
+                        "processing_mode": args.processing_mode,
+                        "training_mode": training_mode,
+                        **({"adv_aux_weight": args.adv_aux_weight,
+                            "adv_aux_loss": args.adv_aux_loss}
+                           if args.adv_training else {})})
+        with open(os.path.join(run.dir, "cli.txt"), "w") as fh:
+            fh.write("python " + " ".join(sys.argv) + "\n")
+
+        # the reference processor is the default processor as built (as
+        # in the JAX package, --processor_uri loads the trained one only)
+        state = create_train_state(cfg, processor, classifier)
+        if args.processor_uri:
+            ckpt.load_module(args.processor_uri, processor)
+        if args.classifier_uri:
+            ckpt.load_module(args.classifier_uri, classifier)
+        train_step = make_train_step(cfg, processor, classifier)
+        eval_step = make_eval_step(cfg, processor, classifier)
+        generator = torch.Generator().manual_seed(args.seed + k_iter)
+        t0 = time.time()
+
+        start_epoch = 0
+        ckpt_root = os.path.join(run.dir, "checkpoints")
+        if args.resume and os.path.isdir(ckpt_root):
+            epochs_done = sorted(
+                int(m.group(1)) for f in os.listdir(ckpt_root)
+                if (m := re.fullmatch(r"epoch_(\d+)\.pt", f)))
+            if epochs_done:
+                start_epoch = epochs_done[-1]
+                ckpt.restore_state(os.path.join(
+                    ckpt_root, f"epoch_{start_epoch:04d}.pt"), state)
+                print(f"[fold {k_iter}] resumed from epoch {start_epoch}")
+
+        for epoch in range(start_epoch, args.epochs):
+            epoch_metrics = []
+            for raw, y in train_loader:
+                epoch_metrics.append(train_step(
+                    state, torch.as_tensor(raw, device=device),
+                    torch.as_tensor(y, device=device), generator))
+            train_mets = {f"train_{k}": v
+                          for k, v in _epoch_means(epoch_metrics).items()}
+            run.log_metrics(train_mets, step=epoch)
+
+            if (args.check_val_every_n_epoch > 0
+                    and (epoch + 1) % args.check_val_every_n_epoch == 0):
+                val_metrics, val_ns = [], []
+                for raw, y in valid_loader:
+                    _, mets = eval_step(
+                        state, torch.as_tensor(raw, device=device),
+                        torch.as_tensor(y, device=device), generator)
+                    val_metrics.append(mets)
+                    val_ns.append(len(raw))
+                # size-weighted: the ragged last batch counts by its size
+                val_mets = {f"val_{k}": v for k, v in
+                            _epoch_means(val_metrics, val_ns).items()}
+                run.log_metrics(val_mets, step=epoch)
+                print(f"[fold {k_iter}] epoch {epoch + 1}/{args.epochs} "
+                      f"{train_mets} {val_mets}")
+
+            if (args.checkpoint_every_n_epochs
+                    and (epoch + 1) % args.checkpoint_every_n_epochs == 0):
+                ckpt.save_state(state, os.path.join(
+                    ckpt_root, f"epoch_{epoch + 1:04d}.pt"))
+
+        print(f"[fold {k_iter}] trained {args.epochs} epochs "
+              f"in {time.time() - t0:.1f}s")
+
+        if args.log_model:
+            # per-component files, what --processor_uri / --classifier_uri
+            # read
+            ckpt.save_module(processor, os.path.join(ckpt_root,
+                                                     "processor.pt"))
+            ckpt.save_module(classifier, os.path.join(ckpt_root,
+                                                      "classifier.pt"))
+
+        if args.save_locally:
+            local_dir = os.path.join("saved_models", args.experiment_name,
+                                     f"{args.run_name}_{k_iter}")
+            ckpt.save_state(state, os.path.join(local_dir, "state.pt"))
+            with open(os.path.join(local_dir, "state_dict.json"), "w") as fh:
+                json.dump(state_dict, fh, indent=2, default=str)
+            print(f"saved locally -> {local_dir}")
+
+        results.append({"state": state, "run": run,
+                        "valid_indices": valid_indices})
+        run.close()
+
+    parent.close()
+    return results
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    os.makedirs("results", exist_ok=True)
+    return run_train(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (the serving and training forwards, both
-backward variants, and ``FusedISP`` around them) against their plain
-PyTorch versions, on the card. Imports no JAX, so that it runs where the port runs:
+backward variants, ``FusedISP`` around them, and the SSIM aux kernel with
+``SSIMAux``) against their plain PyTorch versions, on the card, and the
+plain versions' full float32 under TF32 settings. Imports no JAX, so
+that it runs where the port runs:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -11,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (RES_TOL, VARIANT_TOL, bn_cotangent, bwd_agreement,
-                        kernel_tolerance, processor, smooth_mosaics, witness)
+from chip_smoke import (BWD_F64_PARAM, RES_TOL, SSIM_GRAD_REL, SSIM_SHAPES,
+                        SSIM_VALUE_REL, SSIM_WEIGHTS, VARIANT_TOL,
+                        bn_cotangent, bn_like_pair, bwd_agreement,
+                        kernel_tolerance, max_rel, processor, smooth_mosaics,
+                        ssim_agreement, witness)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
-    fused_isp, fused_isp_bwd, fused_isp_bwd_reference, fused_isp_reference,
-    fused_isp_train, fused_isp_train_reference, unpack_grads)
+    SSIMAux, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
+    fused_isp_reference, fused_isp_train, fused_isp_train_reference,
+    ssim_aux_reference, ssim_aux_value_grad, unpack_grads)
 
 # the camera of tests/test_pallas.py
 MILD_CAM = (
@@ -204,3 +210,98 @@ def test_fused_isp_bwd_checks_its_input(cuda):
         fused_isp_bwd(raw, params, g[:1].contiguous())
     with pytest.raises(TypeError):
         fused_isp_train(raw.double(), params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight", SSIM_WEIGHTS)
+@pytest.mark.parametrize("shape", SSIM_SHAPES, ids=str)
+def test_ssim_aux_matches_plain(shape, weight, cuda):
+    """The SSIM aux kernel on batch-normalised-like images with flat
+    patches: chip_smoke's contract (value against the float64 plain
+    version, gradient against the float32 one and no further from the
+    float64 one than twice the float32 one is), two launches bitwise
+    equal, one launch counted per call."""
+    ref, x = (t.to(cuda) for t in bn_like_pair(shape))
+    launches = ssim_aux_value_grad.launches
+    stats, ok = ssim_agreement(ref, x, weight)
+    assert ssim_aux_value_grad.launches == launches + 2
+    assert stats["bitwise_repeat"], stats
+    assert ok, stats
+
+
+@pytest.mark.gpu
+def test_ssim_aux_function_backward(cuda):
+    """``SSIMAux``: the value is the wrapper's, the backward scales the
+    saved gradient by the upstream one, and the reference gets none."""
+    ref, x = (t.to(cuda) for t in bn_like_pair((3, 3, 67, 45)))
+    ref.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    value = SSIMAux.apply(ref, xg, -1.0)
+    (2.5 * value).backward()
+    want_v, want_g = ssim_aux_value_grad(ref.detach(), x, -1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(value.detach(), want_v)
+    assert torch.equal(xg.grad, 2.5 * want_g)
+    assert ref.grad is None
+
+
+@pytest.mark.gpu
+def test_ssim_aux_checks_its_input(cuda):
+    ref, x = (t.to(cuda) for t in bn_like_pair((2, 3, 16, 16)))
+    with pytest.raises(TypeError):
+        ssim_aux_value_grad(ref.double(), x.double(), 1.0)
+    with pytest.raises(ValueError):
+        ssim_aux_value_grad(ref[:, :2].contiguous(), x[:, :2].contiguous(),
+                            1.0)
+    with pytest.raises(ValueError):
+        ssim_aux_value_grad(ref, x.transpose(2, 3), 1.0)  # not contiguous
+    with pytest.raises(ValueError):
+        ssim_aux_value_grad(ref[:1], x, 1.0)
+
+
+@pytest.fixture
+def cuda_tf32():
+    """The CUDA device with TF32 allowed for cuDNN and matmul (PyTorch's
+    convolution default, and what a caller may set for matmul)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+@pytest.mark.gpu
+def test_plain_versions_stay_float32_under_tf32(cuda_tf32):
+    """With TF32 allowed, the plain ISP (forward, and its backward on
+    smooth inputs) and ``ops/ssim.py`` (value and gradient) still match
+    their float64 selves at the float32 tiers: the serving kernel's
+    per-pixel tolerance, the backward's BWD_F64_PARAM, and SSIM_VALUE_REL
+    and SSIM_GRAD_REL. In TF32 (about 1e-3 relative) each would miss."""
+    assert torch.backends.cudnn.allow_tf32
+    proc = processor(cuda_tf32, use_kernel=False, camera=MILD_CAM)
+    params = proc.kernel_params()
+    raw = smooth_mosaics((4, 256, 256)).to(cuda_tf32)
+    with torch.no_grad():
+        out = fused_isp_reference(raw, params)
+        out64 = fused_isp_reference(raw.double(), {
+            k: v.detach().double() for k, v in params.items()})
+    gamma = float(params["gamma_correct"].detach())
+    assert bool(((out.double() - out64).abs()
+                 <= kernel_tolerance(out64, gamma)).all())
+    g = (out * 0.5 + 0.1).contiguous()
+    _, scal = fused_isp_bwd_reference(raw, params, g)
+    grads = unpack_grads(scal, params)
+    _, grads64 = witness(raw, params, g)
+    errs = {k: max_rel(grads[k].double(), grads64[k], 1e-3) for k in grads}
+    assert max(errs.values()) <= BWD_F64_PARAM, errs
+
+    ref, x = (t.to(cuda_tf32) for t in bn_like_pair((8, 3, 256, 256)))
+    value, d_x = ssim_aux_reference(ref, x, 0.3)
+    value64, d_x64 = ssim_aux_reference(ref, x, 0.3, torch.float64)
+    assert abs(float(value) - float(value64)) <= SSIM_VALUE_REL * abs(
+        float(value64))
+    assert float((d_x.double() - d_x64).abs().max()) <= SSIM_GRAD_REL * float(
+        d_x64.abs().max())
+    assert torch.backends.cudnn.allow_tf32  # the caller's setting is back

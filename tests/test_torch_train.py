@@ -407,15 +407,18 @@ def test_losses_match_jax(case, rng):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="adversarial"):
-        losses.aux_loss("ssim")
+    """What the port still refuses: an unknown aux loss or augmentation,
+    adversarial training without a processor, and a state with nothing to
+    train."""
+    with pytest.raises(NotImplementedError):
+        losses.aux_loss("ms_ssim")
     proc = port_processing(jax_variables(MILD_CAM, np.random.default_rng(0),
                                          perturb=False))
     clf = resnet.ResNet(stage_sizes=(1,), num_filters=8, device="cpu")
-    for kwargs, match in ((dict(augmentation="weak"), "augmentation"),
-                          (dict(adv_training=True), "adversarial")):
-        with pytest.raises(NotImplementedError, match=match):
-            create_train_state(TrainConfig(**kwargs), proc, clf)
+    with pytest.raises(ValueError, match="augmentation"):
+        create_train_state(TrainConfig(augmentation="medium"), proc, clf)
+    with pytest.raises(ValueError, match="needs a processor"):
+        create_train_state(TrainConfig(adv_training=True), None, clf)
     with pytest.raises(ValueError, match="no parameters"):
         create_train_state(TrainConfig(freeze_processor=True,
                                        freeze_classifier=True), proc, clf)
