@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and drift-forensics paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and drift-forensics paths, and
+the fused ResNet stem, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ line):
 1. device: the ``nvidia-smi`` name and power limit; TF32 off for cuDNN
    and matmul, so that every comparison below is full f32.
 2. build: compile the CUDA sources (``fused_isp_fwd.cu``,
-   ``fused_isp_bwd.cu``, ``ssim_aux.cu``) with nvcc, in parallel.
+   ``fused_isp_bwd.cu``, ``ssim_aux.cu``, ``stem.cu``) with nvcc, in
+   parallel.
 3. kernel vs plain: the serving kernel against its plain PyTorch
    version, at the serving shape (B=32, 256x256: edge and corner tiles
    included) and at shapes that are not multiples of the tile, with
@@ -59,13 +60,32 @@ line):
    (``python -m raw2logit_tpu_torch.training.train``): a pretraining run
    with a frozen ISP and weak augmentation, then an SSIM-regularised
    attack on gamma through the classifier file it wrote.
-10. times: CUDA-event times of each kernel, its plain version and its
-   bound, of ``Predictor.__call__``, of a train step and of an
-   adversarial step, at B=32 and B=256.
-11. profile: device time by kernel and the device's idle share of
-   ``Predictor.__call__``, of a train step, of an adversarial step and of
-   the recompute backward (torch.profiler), at B=32 and B=256.
-12. the ``kernels`` line, then the ``ok`` line.
+10. stem kernels vs plain: the five stem kernels (``kernels/stem.py``)
+   against their plain versions at B=32, 256x256 and at a small shape
+   with ragged tiles, on the batch-normalised outputs of the microscopy
+   ISP and on random inputs whose conv output is quantised to multiples
+   of 1/8 (planted ties in the pool), each kernel on the same inputs as
+   its plain version (the pool backward on the kernel's own act), dW and
+   d_x also against float64 plain versions (``STEM_*``); two launches
+   bitwise equal.
+11. stem train: ``make_train_step`` at full ResNet-18 width, B=32, with
+   the ISP kernels, one step with ``stem_kernel=True`` against one with
+   the plain stem from identical weights (loss, classifier gradients as
+   one vector, ISP gradients, running statistics), the kernel step's stem
+   gradients held to the float64 plain stem on that step's own input and
+   cotangent; then 5 steps counting launches (each stem kernel once per
+   step) in which every ISP and stem parameter moves.
+12. stem serve: ``Predictor`` with ``stem_kernel=True``, logits against
+   the plain stem's; only the two forward stem kernels launch.
+13. times: CUDA-event times of each kernel, its plain version, its bound
+   and, for the stem's convolutions, the nearest cuDNN call, of
+   ``Predictor.__call__``, of a train step (with the fused stem and
+   without) and of an adversarial step, at B=32 and B=256.
+14. profile: device time by kernel and the device's idle share of
+   ``Predictor.__call__`` and of a train step (each with the fused stem
+   and without), of an adversarial step and of the recompute backward
+   (torch.profiler), at B=32 and B=256.
+15. the ``kernels`` line, then the ``ok`` line.
 """
 
 import copy
@@ -84,10 +104,15 @@ from raw2logit_tpu_torch.data import (MICROSCOPY_CAMERA_PARAMS,
                                       load_image, write_dng)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
-    PARAM_NAMES, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
-    fused_isp_reference, fused_isp_train, fused_isp_train_reference,
-    ssim_aux_reference, ssim_aux_value_grad, unpack_grads)
+    PARAM_NAMES, batch_stats, bn_backward_coef, bn_fold, bn_input_cotangent,
+    fused_isp, fused_isp_bwd, fused_isp_bwd_reference, fused_isp_reference,
+    fused_isp_train, fused_isp_train_reference, ssim_aux_reference,
+    ssim_aux_value_grad, stem_bnpool, stem_bnpool_reference, stem_conv,
+    stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
+    stem_conv_dx_reference, stem_conv_reference, stem_pool_bwd,
+    stem_pool_bwd_reference, stem_reference, unpack_grads, window_taps)
 from raw2logit_tpu_torch.kernels.build import build
+from raw2logit_tpu_torch.ops.filters import full_float32
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
@@ -181,9 +206,25 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 #   horizontal 11-tap pass 220 (110 FMA); the map's terms A1 3, A2 4, D1 4,
 #   D2 6, D1 D2 1, m 2, its three derivatives 13, the sum of m 1; three
 #   adjoint blurs of two passes 132 (66 FMA); the combination at the pixel 7.
+# The stem's kernels, per element of act (B, 64, H/2, W/2); x is 3/16 of an
+# act element (0.75 B), the pooled plane 1/4 (1 B); operations count the
+# 147 real taps (JAX's CostEstimate counts 192 padded slots):
+# stem_conv_fwd: write act 4 B, read x 0.75 B; 147 FMA (294) and the
+#   statistics' sum, square and sum (3).
+# stem_bnpool: read act 4 B, write pooled 1 B; BN 2, ReLU 1, about 2 of
+#   the window's 8 comparisons.
+# stem_pool_bwd: read act 4 B and the pooled cotangent 1 B, write d_n 4 B;
+#   BN and ReLU 3, about 2 comparisons of the argmax, at most 1 add of
+#   the gather, the mask 1, xhat 2, the two sums 3.
+# stem_conv_dw, stem_conv_dx: read act and d_n 8 B and x (or write d_x)
+#   0.75 B; d_a 6, 147 FMA (294).
 KERNEL_COST = {"fused_isp_fwd": (16, 174), "fused_isp_fwd_train": (36, 174),
                "fused_isp_bwd_res": (40, 386), "fused_isp_bwd": (20, 515),
-               "ssim_aux": (12, 396)}
+               "ssim_aux": (12, 396), "stem_conv_fwd": (4.75, 297),
+               "stem_bnpool": (5, 5), "stem_pool_bwd": (9, 12),
+               "stem_conv_dw": (8.75, 300), "stem_conv_dx": (8.75, 300)}
+STEM_KERNELS = ("stem_conv_fwd", "stem_bnpool", "stem_pool_bwd",
+                "stem_conv_dw", "stem_conv_dx")
 # The TPU kernel each CUDA kernel replaces, and its source.
 KERNELS = {
     "fused_isp_fwd": ("raw2logit_tpu/pallas/fused_isp.py:135",
@@ -196,6 +237,9 @@ KERNELS = {
                       "raw2logit_tpu_torch/csrc/fused_isp_bwd.cu"),
     "ssim_aux": ("raw2logit_tpu/pallas/ssim_aux.py:86",
                  "raw2logit_tpu_torch/csrc/ssim_aux.cu"),
+    **{name: (f"raw2logit_tpu/pallas/stem.py:{line}",
+              "raw2logit_tpu_torch/csrc/stem.cu")
+       for name, line in zip(STEM_KERNELS, (142, 189, 231, 314, 348))},
 }
 # SSIM aux kernel vs its plain version: the value within SSIM_VALUE_REL
 # of the float64 plain version (relative), or within SSIM_F64_FACTOR
@@ -214,6 +258,17 @@ SSIM_WEIGHTS = (0.3, -1.0)
 # weight 0.3, lr 1e-3); the attacked ISP starts from the reference ISP
 # perturbed by half the scale of ``processor``'s perturbation.
 ADV_LR, ADV_AUX_WEIGHT, ADV_STEPS = 1e-3, 0.3, 5
+# Stem kernels vs their plain versions on the same inputs: act within
+# STEM_ACT_TOL of max |plain| (147-tap float32 sums in another order); the
+# conv statistics and the pool backward's sums within STEM_SUM_TOL of the
+# channel's sum of |terms| (float32 partial sums in another order); pooled
+# and d_n bitwise (the same act, the same rounding, the same tie rule and
+# order of the gather's sum); dW and d_x within STEM_GRAD_TOL of their
+# scale (tests/test_stem_pallas.py:76-81) and no further from the float64
+# plain version than STEM_F64_FACTOR times the float32 plain version is.
+STEM_ACT_TOL, STEM_SUM_TOL, STEM_GRAD_TOL = 1e-5, 1e-5, 2e-4
+STEM_F64_FACTOR = 2.0
+STEM_SHAPES = ((SERVE_BATCH, 3, SIZE, SIZE), (3, 3, 68, 44))
 
 
 def emit(obj):
@@ -242,10 +297,16 @@ def bound(kind, n_pixels, kernel="fused_isp_fwd"):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+STEM_WRAPPERS = dict(zip(STEM_KERNELS, (stem_conv, stem_bnpool, stem_pool_bwd,
+                                        stem_conv_dw, stem_conv_dx)))
+
+
 def reset_counts():
     fused_isp.launches = fused_isp_train.launches = 0
     fused_isp_bwd.launches = fused_isp_bwd.launches_res = 0
     ssim_aux_value_grad.launches = 0
+    for fn in STEM_WRAPPERS.values():
+        fn.launches = 0
 
 
 def counts():
@@ -254,14 +315,19 @@ def counts():
             "fused_isp_fwd_train": fused_isp_train.launches,
             "fused_isp_bwd_res": fused_isp_bwd.launches_res,
             "fused_isp_bwd": fused_isp_bwd.launches,
-            "ssim_aux": ssim_aux_value_grad.launches}
+            "ssim_aux": ssim_aux_value_grad.launches,
+            **{name: fn.launches for name, fn in STEM_WRAPPERS.items()}}
 
 
-def launches(fwd=0, fwd_train=0, bwd_res=0, bwd=0, ssim=0):
-    """An expected ``counts()``."""
+def launches(fwd=0, fwd_train=0, bwd_res=0, bwd=0, ssim=0, stem_fwd=0,
+             stem_bwd=0):
+    """An expected ``counts()``: ``stem_fwd`` launches of each forward stem
+    kernel, ``stem_bwd`` of each backward one."""
     return {"fused_isp_fwd": fwd, "fused_isp_fwd_train": fwd_train,
             "fused_isp_bwd_res": bwd_res, "fused_isp_bwd": bwd,
-            "ssim_aux": ssim}
+            "ssim_aux": ssim,
+            **{name: stem_fwd if i < 2 else stem_bwd
+               for i, name in enumerate(STEM_KERNELS)}}
 
 
 def processor(device, use_kernel, camera=MICROSCOPY_CAMERA_PARAMS,
@@ -419,7 +485,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = build(["fused_isp_fwd", "fused_isp_bwd", "ssim_aux"])
+    report = build(["fused_isp_fwd", "fused_isp_bwd", "ssim_aux", "stem"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": report})
 
@@ -1135,6 +1201,308 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
     return served, pred
 
 
+def stem_params(device, seed=SEED):
+    """A stem conv weight with lecun-normal scale (variance 1 / 147) and
+    BN scale and shift near 1 and 0, seeded."""
+    gen = torch.Generator(device).manual_seed(seed)
+    w = torch.randn((64, 3, 7, 7), device=device, generator=gen) / 147 ** 0.5
+    gamma = 1 + 0.1 * torch.randn(64, device=device, generator=gen)
+    beta = 0.1 * torch.randn(64, device=device, generator=gen)
+    return w, gamma, beta
+
+
+def l2_rel(got, want):
+    """||got - want|| / ||want||, in float64."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def sums_err(got, want, terms):
+    """Largest per-channel |got - want| over the channel's sum of |terms|
+    (the scale a float32 sum in another order is accurate to)."""
+    scale = terms.double().abs().sum((0, 2, 3)).clamp_min(1e-30)
+    return float(((got.double() - want.double()).abs() / scale).max())
+
+
+def grad_agreement(run, again, plain, wit):
+    """dW or d_x of a kernel against its float32 plain version and the
+    float64 witness (STEM_GRAD_TOL, STEM_F64_FACTOR), and a second
+    launch."""
+    scale = float(wit.abs().max())
+    err_k = float((run.double() - wit).abs().max()) / scale
+    err_p = float((plain.double() - wit).abs().max()) / scale
+    stats = {"max_abs_err": float((run - plain).abs().max()),
+             "max_rel_err_vs_plain": max_rel(run.double(), plain.double()),
+             "vs_float64": err_k, "plain_vs_float64": err_p,
+             "bitwise_repeat": bool(torch.equal(run, again))}
+    ok = (stats["max_rel_err_vs_plain"] <= STEM_GRAD_TOL
+          and err_k <= STEM_F64_FACTOR * err_p
+          and stats["bitwise_repeat"])
+    return stats, ok
+
+
+def stem_agreement(x, w, gamma, beta, ties, seed=SEED):
+    """Each stem kernel against its plain version on the same inputs: the
+    conv on (x, w); BN-pool, pool backward (a seeded normal pooled
+    cotangent), dW and d_x on the kernel's act, quantised to multiples of
+    1/8 with ``ties``, and on the coefficients of its batch statistics.
+    Returns {kernel: (statistics, whether they hold the STEM_* limits)}."""
+    out = {}
+    act, s1, s2 = stem_conv(x, w)
+    act2, s1b, s2b = stem_conv(x, w)
+    ra, r1, r2 = stem_conv_reference(x, w)
+    stats = {"max_abs_err": float((act - ra).abs().max()),
+             "act_max_rel_err": max_rel(act, ra),
+             "sum_err": sums_err(s1, r1, ra),
+             "sumsq_err": sums_err(s2, r2, ra * ra),
+             "bitwise_repeat": bool(torch.equal(act, act2)
+                                    and torch.equal(s1, s1b)
+                                    and torch.equal(s2, s2b))}
+    out["stem_conv_fwd"] = stats, (
+        stats["act_max_rel_err"] <= STEM_ACT_TOL
+        and max(stats["sum_err"], stats["sumsq_err"]) <= STEM_SUM_TOL
+        and stats["bitwise_repeat"])
+    del act2, ra
+    n = act.numel() // 64
+    mean, var = batch_stats(s1, s2, n)
+    inv, alpha, shift = bn_fold(gamma, beta, mean, var)
+    if ties:
+        act = torch.round(act * 8) / 8
+    pooled = stem_bnpool(act, alpha, shift)
+    pooled2 = stem_bnpool(act, alpha, shift)
+    want = stem_bnpool_reference(act, alpha, shift)
+    stats = {"max_abs_err": float((pooled - want).abs().max()),
+             "bitwise_equal_to_plain": bool(torch.equal(pooled, want)),
+             "bitwise_repeat": bool(torch.equal(pooled, pooled2))}
+    out["stem_bnpool"] = stats, (stats["bitwise_equal_to_plain"]
+                                 and stats["bitwise_repeat"])
+    gen = torch.Generator(x.device).manual_seed(seed)
+    dp = torch.randn(pooled.shape, device=x.device, generator=gen)
+    del pooled2, want
+    d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+    d_n2, sd2, sdx2 = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+    rn, rsd, rsdx = stem_pool_bwd_reference(act, dp, alpha, shift, mean, inv)
+    xhat = (act - mean[:, None, None]) * inv[:, None, None]
+    n_pos = float((rn > 0).float().mean())
+    stats = {"max_abs_err": float((d_n - rn).abs().max()),
+             "bitwise_equal_to_plain": bool(torch.equal(d_n, rn)),
+             "sum_err": sums_err(sd, rsd, rn),
+             "sum_xhat_err": sums_err(sdx, rsdx, rn * xhat),
+             "share_positive": n_pos,
+             "windows_with_positive_ties": window_ties(act, alpha, shift),
+             "bitwise_repeat": bool(torch.equal(d_n, d_n2)
+                                    and torch.equal(sd, sd2)
+                                    and torch.equal(sdx, sdx2))}
+    out["stem_pool_bwd"] = stats, (
+        stats["bitwise_equal_to_plain"]
+        and max(stats["sum_err"], stats["sum_xhat_err"]) <= STEM_SUM_TOL
+        and stats["bitwise_repeat"])
+    del d_n2, rn, xhat
+    coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
+    coef64 = tuple(c.double() for c in coef)
+    wit_in = act.double(), d_n.double()
+    out["stem_conv_dw"] = grad_agreement(
+        stem_conv_dw(x, act, d_n, coef), stem_conv_dw(x, act, d_n, coef),
+        stem_conv_dw_reference(x, act, d_n, coef),
+        stem_conv_dw_reference(x.double(), *wit_in, coef64))
+    out["stem_conv_dx"] = grad_agreement(
+        stem_conv_dx(act, d_n, coef, w), stem_conv_dx(act, d_n, coef, w),
+        stem_conv_dx_reference(act, d_n, coef, w),
+        stem_conv_dx_reference(*wit_in, coef64, w.double()))
+    return out
+
+
+def window_ties(act, alpha, shift):
+    """Share of pooling windows whose maximum is positive and taken by two
+    or more taps."""
+    taps = window_taps(torch.relu(act * alpha[:, None, None]
+                                  + shift[:, None, None]))
+    best = taps.max(0).values
+    return float(((taps == best).sum(0) > 1).logical_and(best > 0)
+                 .float().mean())
+
+
+def stem_input(device, shape, inputs):
+    """The stem's input: the batch-normalised output (batch statistics)
+    of the perturbed microscopy ISP on test mosaics (``isp``), or a
+    seeded normal batch (``random``)."""
+    b, _, h, w = shape
+    if inputs == "random":
+        gen = torch.Generator(device).manual_seed(SEED)
+        return torch.randn(shape, device=device, generator=gen)
+    with torch.no_grad():
+        return processor(device, use_kernel=False).train()(
+            test_mosaics((b, h, w)).to(device))[0].contiguous()
+
+
+def phase_stem_kernels_vs_plain(device, shapes=STEM_SHAPES):
+    """The five stem kernels against their plain versions, on the ISP's
+    outputs and on random inputs with planted ties; returns the largest
+    |kernel - plain| of each."""
+    worst = dict.fromkeys(STEM_KERNELS, 0.0)
+    w, gamma, beta = stem_params(device)
+    for shape in shapes:
+        for inputs, ties in (("isp", False), ("random", True)):
+            x = stem_input(device, shape, inputs)
+            results = stem_agreement(x, w, gamma, beta, ties)
+            torch.cuda.synchronize()
+            for name, (stats, ok) in results.items():
+                emit({"phase": "stem_kernels_vs_plain", "kernel": name,
+                      "shape": list(shape), "inputs": inputs,
+                      "planted_ties": ties, **stats})
+                check(ok, f"{name} {shape} {inputs}: {stats}")
+                worst[name] = max(worst[name], stats["max_abs_err"])
+            check(not ties or results["stem_pool_bwd"][0][
+                "windows_with_positive_ties"] > 0.01, "ties planted")
+            del x, results
+    return worst
+
+
+def capture_stem(c):
+    """A dict that each train-mode forward of classifier ``c`` fills with
+    its input ("x", detached), the stem parameters as they were ("w",
+    "gamma", "beta") and, after the backward, the cotangents of its input
+    ("d_x") and of the stem's output ("d_pooled")."""
+    seen = {}
+
+    def at_input(module, args):
+        x = args[0]
+        seen.update(x=x.detach().clone(), w=c.conv1.weight.detach().clone(),
+                    gamma=c.bn1.weight.detach().clone(),
+                    beta=c.bn1.bias.detach().clone())
+        if x.requires_grad:
+            x.register_hook(lambda g: seen.__setitem__("d_x", g))
+
+    def at_stem_output(module, args):
+        args[0].register_hook(lambda g: seen.__setitem__("d_pooled", g))
+    c.register_forward_pre_hook(at_input)
+    c.layer1.register_forward_pre_hook(at_stem_output)
+    return seen
+
+
+def stem_witness(seen, dtype):
+    """Gradients (d_x, dW, dgamma, dbeta) of the plain stem in ``dtype``
+    (autograd of ``stem_reference`` in train mode) for the captured input,
+    parameters and cotangent."""
+    args = [seen[k].detach().to(dtype).requires_grad_(True)
+            for k in ("x", "w", "gamma", "beta")]
+    zeros = torch.zeros(64, dtype=dtype, device=args[0].device)
+    with torch.enable_grad():
+        pooled, _, _ = stem_reference(*args, zeros, zeros + 1, True)
+        return torch.autograd.grad(pooled, args, seen["d_pooled"].to(dtype))
+
+
+def phase_stem_train(device, batch=SERVE_BATCH, steps=TRAIN_STEPS):
+    """One train step with ``stem_kernel=True`` against one with the plain
+    stem from identical weights (both through the ISP kernels); the kernel
+    step's stem gradients against the float64 plain stem on its own input
+    and cotangent; then ``steps`` kernel-path steps. Returns their launch
+    counts."""
+    raw, y, proc, clf = train_setup(device, batch)
+    cfg = TrainConfig(lr=TRAIN_LR)
+    runs = {}
+    for name, flag in (("stem_kernel", True), ("plain_stem", False)):
+        p, c, state, step = train_copy(cfg, proc, clf)
+        c.stem_kernel = flag
+        seen = capture_stem(c)
+        loss = float(step(state, raw, y)["loss"])
+        runs[name] = grads_and_stats(p, c), loss
+        if flag:
+            kernel_seen = seen
+            kernel_grads = (seen["d_x"], c.conv1.weight.grad,
+                            c.bn1.weight.grad, c.bn1.bias.grad)
+    agree = step_agreement(runs["stem_kernel"], runs["plain_stem"])
+    stats_k, stats_p = runs["stem_kernel"][0][2], runs["plain_stem"][0][2]
+    bn1 = {k: max_rel(stats_k[f"clf.bn1.{k}"].double(),
+                      stats_p[f"clf.bn1.{k}"].double())
+           for k in ("running_mean", "running_var")}
+    # relative L2 distances: the float64 forward's act differs from either
+    # float32 one by rounding, which moves the pool's argmax in a few
+    # near-tied windows (a few per 8.4 M at B = 32); each such flip moves
+    # one whole cotangent, which a max-relative distance of d_x would read
+    # as ~1e-2 for whichever path happens to flip
+    wit = stem_witness(kernel_seen, torch.float64)
+    plain = stem_witness(kernel_seen, torch.float32)
+    names = ("d_x", "d_w", "d_gamma", "d_beta")
+    vs_f64 = {n: (l2_rel(k, w64), l2_rel(p, w64))
+              for n, k, p, w64 in zip(names, kernel_grads, plain, wit)}
+    emit({"phase": "stem_train_vs_plain_stem", "batch": batch,
+          "loss": runs["stem_kernel"][1], "loss_plain_stem":
+          runs["plain_stem"][1], **agree, "bn1_running_max_rel_err": bn1,
+          "stem_grads_vs_float64_same_cotangent": {
+              n: {"kernel": k, "plain": p} for n, (k, p) in vs_f64.items()}})
+    check(agree["loss_abs_err"] <= LOSS_TOL, "stem step: loss")
+    check(agree["clf_grad_max_rel_err"] <= CLF_GRAD_TOL,
+          f"stem step: classifier gradients {agree['clf_grad_max_rel_err']}")
+    check(max(agree["isp_grad_max_rel_err"].values()) <= BWD_PARAM,
+          f"stem step: ISP gradients {agree['isp_grad_max_rel_err']}")
+    check(agree["running_stats_max_rel_err"] <= STATS_TOL,
+          f"stem step: running statistics "
+          f"{agree['running_stats_max_rel_err']}")
+    check(all(k <= STEM_F64_FACTOR * p for k, p in vs_f64.values()),
+          f"stem step: the kernel's stem gradients vs float64 {vs_f64}")
+    del runs, kernel_seen, kernel_grads, wit, plain
+
+    p, c, state, step = train_copy(cfg, proc, clf)
+    c.stem_kernel = True
+    before = {f"isp.{n}": t.detach().clone()
+              for n, t in p.named_parameters()}
+    before.update({n: t.detach().clone() for n, t in c.named_parameters()
+                   if n.startswith(("conv1.", "bn1."))})
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, raw, y)["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    main = counts()
+    losses = [float(v) for v in losses]
+    now = {f"isp.{n}": t for n, t in p.named_parameters()}
+    now.update(dict(c.named_parameters()))
+    moved = {n: not torch.equal(before[n], now[n].detach()) for n in before}
+    emit({"phase": "stem_train", "batch": batch, "steps": steps,
+          "seconds": seconds, "losses": losses, "params_moved": moved,
+          "launches": main})
+    check(all(np.isfinite(losses)), "finite losses")
+    check(all(moved.values()), f"every ISP and stem parameter moved {moved}")
+    check(main == launches(fwd_train=steps, bwd_res=steps, stem_fwd=steps,
+                           stem_bwd=steps), f"stem train launches {main}")
+    return main
+
+
+def stem_predictor(device, proc, clf, stem_kernel):
+    c = copy.deepcopy(clf)
+    c.stem_kernel = stem_kernel
+    return Predictor(proc, c, device=device)
+
+
+def phase_stem_serve(device, batch=SERVE_BATCH, n_batches=2):
+    """``Predictor`` with the fused stem against the plain stem on the
+    same device-resident mosaics; returns its launch counts and the
+    Predictor."""
+    proc = processor(device, use_kernel=True)
+    clf = classifier(device)
+    pred = stem_predictor(device, proc, clf, True)
+    plain = stem_predictor(device, proc, clf, False)
+    raws = [test_mosaics((batch, SIZE, SIZE), seed=SEED + i).to(device)
+            for i in range(n_batches)]
+    reset_counts()
+    logits = [pred(r) for r in raws]
+    torch.cuda.synchronize()
+    served = counts()
+    want = [plain(r) for r in raws]
+    err = max(float((a - b).abs().max()) for a, b in zip(logits, want))
+    emit({"phase": "stem_serve", "batch": batch, "batches": n_batches,
+          "launches": served, "max_abs_err_vs_plain_stem": err,
+          "logit_abs_max": max(float(a.abs().max()) for a in logits),
+          "tol": LOGIT_TOL})
+    check(all(bool(torch.isfinite(a).all()) and a.shape == (batch, 9)
+              for a in logits), "finite logits of the batch's shape")
+    check(served == launches(fwd=n_batches, stem_fwd=n_batches),
+          f"stem serving launches {served}")
+    check(err <= LOGIT_TOL, f"stem serving logits vs plain stem {err}")
+    return served, pred
+
+
 def cuda_ms(fn, inputs, iters):
     """Mean ms per call by CUDA events, cycling through ``inputs`` (several
     distinct inputs keep the raw reads out of the L2 cache)."""
@@ -1151,13 +1519,14 @@ def cuda_ms(fn, inputs, iters):
     return start.elapsed_time(end) / iters
 
 
-def train_runner(device, batch, use_kernel=True):
+def train_runner(device, batch, use_kernel=True, stem_kernel=False):
     """A train step at ``batch`` through the kernel path (or the plain
-    path): a callable taking and ignoring one argument (for
-    ``cuda_ms``)."""
+    path), with the fused stem or not: a callable taking and ignoring one
+    argument (for ``cuda_ms``)."""
     raw, y, proc, clf = train_setup(device, batch)
-    _, _, state, step = train_copy(TrainConfig(lr=TRAIN_LR), proc, clf,
+    _, c, state, step = train_copy(TrainConfig(lr=TRAIN_LR), proc, clf,
                                    use_kernel)
+    c.stem_kernel = stem_kernel
     return lambda _: step(state, raw, y)
 
 
@@ -1169,11 +1538,63 @@ def adv_runner(device, batch, use_kernel=True):
     return lambda _: step(state, raw, y)
 
 
-def phase_times(device, kind, pred, trains, advs):
+def stem_timings(device, b):
+    """{kernel: (wrapper ms, plain ms, nearest cuDNN ms or None)} of the
+    five stem kernels at B = ``b``, 256x256, by CUDA events. The nearest
+    cuDNN calls lack the statistics (F.conv2d) and the BN fold
+    (convolution_backward on a ready d_a); the port never calls them."""
+    x = stem_input(device, (b, 3, SIZE, SIZE), "random")
+    w, gamma, beta = stem_params(device)
+    with torch.no_grad():
+        act, s1, s2 = stem_conv(x, w)
+        n = act.numel() // 64
+        mean, var = batch_stats(s1, s2, n)
+        inv, alpha, shift = bn_fold(gamma, beta, mean, var)
+        pooled = stem_bnpool(act, alpha, shift)
+        dp = torch.randn_like(pooled)
+        d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+        coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
+        d_a = bn_input_cotangent(act, d_n, coef)
+    one = [None]
+
+    def cudnn_bwd(mask):
+        return lambda _: torch.ops.aten.convolution_backward(
+            d_a, x, w, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1, mask)
+
+    with torch.no_grad(), full_float32():
+        return {
+            "stem_conv_fwd": (
+                cuda_ms(lambda _: stem_conv(x, w), one, 20),
+                cuda_ms(lambda _: stem_conv_reference(x, w), one, 5),
+                cuda_ms(lambda _: torch.nn.functional.conv2d(
+                    x, w, stride=2, padding=3), one, 20)),
+            "stem_bnpool": (
+                cuda_ms(lambda _: stem_bnpool(act, alpha, shift), one, 20),
+                cuda_ms(lambda _: stem_bnpool_reference(act, alpha, shift),
+                        one, 5), None),
+            "stem_pool_bwd": (
+                cuda_ms(lambda _: stem_pool_bwd(act, dp, alpha, shift, mean,
+                                                inv), one, 20),
+                cuda_ms(lambda _: stem_pool_bwd_reference(
+                    act, dp, alpha, shift, mean, inv), one, 5), None),
+            "stem_conv_dw": (
+                cuda_ms(lambda _: stem_conv_dw(x, act, d_n, coef), one, 20),
+                cuda_ms(lambda _: stem_conv_dw_reference(x, act, d_n, coef),
+                        one, 5),
+                cuda_ms(cudnn_bwd([False, True, False]), one, 20)),
+            "stem_conv_dx": (
+                cuda_ms(lambda _: stem_conv_dx(act, d_n, coef, w), one, 20),
+                cuda_ms(lambda _: stem_conv_dx_reference(act, d_n, coef, w),
+                        one, 5),
+                cuda_ms(cudnn_bwd([True, False, False]), one, 20))}
+
+
+def phase_times(device, kind, pred, trains, advs, pred_stem, trains_stem):
     """CUDA-event ms of each kernel's wrapper and its plain version beside
-    the kernel's bound, of ``Predictor.__call__``, of a train step and of
-    an adversarial step (and of the plain path's steps), at B = 32 and
-    B = 256."""
+    the kernel's bound (and, for the stem's convolutions, the nearest
+    cuDNN call), of ``Predictor.__call__`` and of a train step (each with
+    the fused stem and without) and of an adversarial step (and of the
+    plain path's steps), at B = 32 and B = 256."""
     params = processor(device, use_kernel=True).kernel_params()
     rows = {}
     for b in (SERVE_BATCH, BIG_BATCH):
@@ -1214,14 +1635,20 @@ def phase_times(device, kind, pred, trains, advs):
             cuda_ms(lambda a: ssim_aux_reference(a[0], a[1], ADV_AUX_WEIGHT),
                     pairs, 10))
         del pairs
+        timed = {name: (*ms, None) for name, ms in timed.items()}
+        timed.update(stem_timings(device, b))
         kernels = {}
-        for name, (k_ms, p_ms) in timed.items():
+        for name, (k_ms, p_ms, lib_ms) in timed.items():
             elems = b * SIZE * SIZE * (3 if name == "ssim_aux" else 1)
+            if name in STEM_KERNELS:
+                elems = b * 64 * (SIZE // 2) ** 2
             b_ms, b_by = bound(kind, elems, name)
             kernels[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+                             "bound_by": b_by, "library_ms": lib_ms}
         s_ms = cuda_ms(pred, raws, 10)
+        s_stem_ms = cuda_ms(pred_stem, raws, 10)
         t_ms = cuda_ms(trains[b], [None, None], 10)
+        t_stem_ms = cuda_ms(trains_stem[b], [None, None], 10)
         t_plain_ms = cuda_ms(train_runner(device, b, use_kernel=False),
                              [None, None], 10)
         a_ms = cuda_ms(advs[b], [None, None], 10)
@@ -1229,8 +1656,11 @@ def phase_times(device, kind, pred, trains, advs):
                              [None, None], 10)
         rows[b] = {"batch": b, "kernels": kernels, "predictor_ms": s_ms,
                    "predictor_imgs_per_s": b / s_ms * 1e3,
+                   "predictor_stem_kernel_ms": s_stem_ms,
                    "train_step_ms": t_ms,
                    "train_imgs_per_s": b / t_ms * 1e3,
+                   "train_step_stem_kernel_ms": t_stem_ms,
+                   "train_stem_kernel_imgs_per_s": b / t_stem_ms * 1e3,
                    "plain_path_train_step_ms": t_plain_ms,
                    "adversarial_step_ms": a_ms,
                    "adversarial_imgs_per_s": b / a_ms * 1e3,
@@ -1283,28 +1713,33 @@ PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false>",
                 "fused_isp_fwd_train": "fused_isp_fwd_kernel<true>",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
                 "fused_isp_bwd": "fused_isp_bwd_kernel<false>",
-                "ssim_aux": "ssim_aux_kernel"}
+                "ssim_aux": "ssim_aux_kernel",
+                **{name: f"{name}_kernel" for name in STEM_KERNELS}}
 
 
-def phase_profile(device, pred, trains, advs, calls=5):
-    """Device time by kernel of ``Predictor.__call__``, of a train step, of
-    an adversarial step and of the recompute backward, and the device's
-    idle share of the wall time, at B = 32 and B = 256. Returns {(what,
-    batch): {kernel: device ms per call}}."""
+def phase_profile(device, pred, trains, advs, pred_stem, trains_stem,
+                  calls=5):
+    """Device time by kernel of ``Predictor.__call__`` and of a train step
+    (each with the fused stem and without), of an adversarial step and of
+    the recompute backward, and the device's idle share of the wall time,
+    at B = 32 and B = 256. Returns {(what, batch): {kernel: device ms per
+    call}}."""
     params = processor(device, use_kernel=True).kernel_params()
 
     def recompute_bwd(a):
         return fused_isp_bwd(a[0], params, a[1])
 
     found = {}
-    for what, fn in (("serve", pred), ("train", None), ("adversarial", None),
-                     ("bwd_recompute", recompute_bwd)):
+    for what, fn in (("serve", pred), ("serve_stem", pred_stem),
+                     ("train", None), ("train_stem", None),
+                     ("adversarial", None), ("bwd_recompute", recompute_bwd)):
         for b in (SERVE_BATCH, BIG_BATCH):
             arg = test_mosaics((b, SIZE, SIZE)).to(device)
             if what == "bwd_recompute":
                 with torch.no_grad():
                     arg = arg, (fused_isp(arg, params) * 0.5 + 0.1)
-            fn_b = fn or {"train": trains, "adversarial": advs}[what][b]
+            fn_b = fn or {"train": trains, "train_stem": trains_stem,
+                          "adversarial": advs}[what][b]
             kernels, busy, wall_ms = profile_calls(fn_b, arg, calls)
             ours = {name: sum(k[0] for k in kernels if key in k[1])
                     for name, key in PROFILE_KEYS.items()}
@@ -1317,7 +1752,10 @@ def phase_profile(device, pred, trains, advs, calls=5):
                   "top_kernels_ms": [[k[1][:70], k[0], k[2]]
                                      for k in kernels[:10]]})
             want = {"serve": ("fused_isp_fwd",),
+                    "serve_stem": ("fused_isp_fwd", *STEM_KERNELS[:2]),
                     "train": ("fused_isp_fwd_train", "fused_isp_bwd_res"),
+                    "train_stem": ("fused_isp_fwd_train",
+                                   "fused_isp_bwd_res", *STEM_KERNELS),
                     "adversarial": ("fused_isp_fwd", "fused_isp_fwd_train",
                                     "fused_isp_bwd_res", "ssim_aux"),
                     "bwd_recompute": ("fused_isp_bwd",)}[what]
@@ -1339,6 +1777,7 @@ def main():
     max_err = {"fused_isp_fwd": phase_kernel_vs_plain(device),
                **phase_train_kernels_vs_plain(device)}
     max_err["ssim_aux"] = phase_ssim_kernel_vs_plain(device)
+    max_err.update(phase_stem_kernels_vs_plain(device))
     serve_launches, pred = phase_serve(device)
     path_launches = {"fused_isp_fwd": serve_launches}
     main_path, recompute = phase_train(device)
@@ -1348,17 +1787,28 @@ def main():
         fused_isp_bwd=recompute["fused_isp_bwd"],
         ssim_aux=phase_adversarial(device)["ssim_aux"])
     phase_cli(device)
-    trains = {b: train_runner(device, b) for b in (SERVE_BATCH, BIG_BATCH)}
-    advs = {b: adv_runner(device, b) for b in (SERVE_BATCH, BIG_BATCH)}
-    rows = phase_times(device, kind, pred, trains, advs)
-    device_ms = phase_profile(device, pred, trains, advs)
+    stem_main = phase_stem_train(device)
+    path_launches.update({n: stem_main[n] for n in STEM_KERNELS})
+    _, pred_stem = phase_stem_serve(device)
+    batches = (SERVE_BATCH, BIG_BATCH)
+    trains = {b: train_runner(device, b) for b in batches}
+    trains_stem = {b: train_runner(device, b, stem_kernel=True)
+                   for b in batches}
+    advs = {b: adv_runner(device, b) for b in batches}
+    rows = phase_times(device, kind, pred, trains, advs, pred_stem,
+                       trains_stem)
+    device_ms = phase_profile(device, pred, trains, advs, pred_stem,
+                              trains_stem)
     entries = []
     for name, (replaces, source) in KERNELS.items():
         r = rows[SERVE_BATCH]["kernels"][name]
         where = {"fused_isp_fwd": "serve", "fused_isp_bwd": "bwd_recompute",
                  "ssim_aux": "adversarial"}.get(name, "train")
-        shape = ([SERVE_BATCH, 3, SIZE, SIZE] if name == "ssim_aux"
+        shape = ([SERVE_BATCH, 3, SIZE, SIZE]
+                 if name == "ssim_aux" or name in STEM_KERNELS
                  else [SERVE_BATCH, SIZE, SIZE])
+        if name in STEM_KERNELS:
+            where = "train_stem"
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[name],
@@ -1370,7 +1820,10 @@ def main():
             "ms": r["ms"],
             "device_ms": device_ms[where, SERVE_BATCH].get(name),
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"library_call": "nearest cuDNN call, without the BN "
+                                "statistics or fold"}
+               if r["library_ms"] is not None else {}),
             "shape": shape, "card": smi})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,13 @@
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor, and counts its launches in an integer
 attribute (``fused_isp.launches``, ``fused_isp_train.launches``,
-``fused_isp_bwd.launches_res``, ``fused_isp_bwd.launches`` and
-``ssim_aux_value_grad.launches``). ``FusedISP`` pairs the training
-forward with the backward kernel; ``SSIMAux`` wraps the SSIM aux
-kernel's value and gradient.
+``fused_isp_bwd.launches_res``, ``fused_isp_bwd.launches``,
+``ssim_aux_value_grad.launches``, and the stem's ``stem_conv``,
+``stem_bnpool``, ``stem_pool_bwd``, ``stem_conv_dw`` and ``stem_conv_dx``
+``.launches``). ``FusedISP`` pairs the training forward with the backward
+kernel; ``SSIMAux`` wraps the SSIM aux kernel's value and gradient;
+``StemTrain`` runs the stem's forward kernels and its three backward
+kernels.
 """
 
 from raw2logit_tpu_torch.kernels.fused_isp import (  # noqa: F401
@@ -17,3 +20,9 @@ from raw2logit_tpu_torch.kernels.fused_isp_bwd import (  # noqa: F401
     fused_isp_bwd, fused_isp_bwd_reference, unpack_grads)
 from raw2logit_tpu_torch.kernels.ssim_aux import (  # noqa: F401
     SSIMAux, ssim_aux_reference, ssim_aux_value_grad)
+from raw2logit_tpu_torch.kernels.stem import (  # noqa: F401
+    StemTrain, batch_stats, bn_backward_coef, bn_fold, bn_input_cotangent,
+    stem_bnpool, stem_bnpool_reference, stem_conv, stem_conv_dw,
+    stem_conv_dw_reference, stem_conv_dx, stem_conv_dx_reference,
+    stem_conv_reference, stem_eval, stem_pool_bwd, stem_pool_bwd_reference,
+    stem_reference, stem_train, window_taps)

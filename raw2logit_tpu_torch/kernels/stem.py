@@ -1,0 +1,501 @@
+"""Fused ResNet stem (conv 7x7/2 3->64, train-mode batch norm, ReLU, maxpool
+3x3/2): the five CUDA kernels of ``csrc/stem.cu``, their plain PyTorch
+versions, ``StemTrain`` (the autograd function around them), ``stem_eval``
+and ``stem_reference`` (the plain stem).
+
+Port of ``raw2logit_tpu/pallas/stem.py`` (``_conv_kernel``,
+``_bnpool_kernel``, ``_pool_bn_bwd_kernel``, ``_conv_dw_kernel``,
+``_conv_dxs_kernel``; ``stem_train`` with its custom VJP, ``stem_eval``,
+``stem_reference``). The public functions take NCHW input and OIHW
+weights; the TPU kernels' space-to-depth phase planes and selector
+matrices have no counterpart, since the CUDA kernels read strided taps
+directly.
+
+Contract: x (B, 3, H, W) and the weights (64, 3, 7, 7), both float32, H
+and W multiples of 4 (the pooled plane is (H / 4, W / 4)); the JAX kernels
+need H a multiple of 32. Anything else raises.
+
+Each wrapper launches its kernel on a CUDA tensor (and raises if the
+launch fails) and runs its plain version on a CPU tensor; ``.launches``
+counts kernel launches. The statistics and dW are per-CTA partials summed
+here in float64, so two launches are bitwise equal.
+"""
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from raw2logit_tpu_torch.kernels.build import load
+from raw2logit_tpu_torch.ops.filters import conv2d_f32, full_float32
+
+C_OUT, C_IN, K = 64, 3, 7
+TAPS = C_IN * K * K
+# kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes)
+_CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX = range(4)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+
+
+def stem_conv_reference(x, w, stats=True):
+    """act = conv(x, w), stride 2, pad 3, in full float32; and, with
+    ``stats``, the per-channel float64 sums of act and act^2 (else
+    None, None)."""
+    act = conv2d_f32(x, w, stride=2, padding=3)
+    if not stats:
+        return act, None, None
+    a = act.double()
+    return act, a.sum((0, 2, 3)), (a * a).sum((0, 2, 3))
+
+
+def _per_channel(v):
+    return v[:, None, None]
+
+
+def stem_bnpool_reference(act, alpha, beta):
+    """maxpool 3x3/2 pad 1 of relu(act * alpha + beta), per channel."""
+    n = act * _per_channel(alpha) + _per_channel(beta)
+    return F.max_pool2d(F.relu(n), 3, 2, padding=1)
+
+
+def window_taps(r):
+    """(9, B, C, Ho/2, Wo/2): tap t = (dy, dx) row-major of pooling window
+    (i, j) is r[2i + dy - 1, 2j + dx - 1], -1 outside the plane."""
+    hq, wq = r.shape[2] // 2, r.shape[3] // 2
+    rp = F.pad(r, (1, 1, 1, 1), value=-1.0)
+    return torch.stack([rp[:, :, dy:dy + 2 * hq:2, dx:dx + 2 * wq:2]
+                        for dy in range(3) for dx in range(3)])
+
+
+def stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv):
+    """Pool, ReLU and BN backward: d_n (the cotangent of n = act * alpha +
+    beta) and the per-channel float64 sums of d_n and d_n * xhat, with
+    xhat = (act - mean) * inv. Each pooling window hands its cotangent to
+    its first maximum in tap order (``_argmax_first`` of the JAX
+    package); positions sum what they receive in tap order."""
+    n = act * _per_channel(alpha) + _per_channel(beta)
+    taps = window_taps(F.relu(n))
+    best = taps.max(0).values
+    first = torch.full(best.shape, 9, dtype=torch.int64, device=act.device)
+    for t in reversed(range(9)):
+        first = torch.where(taps[t] == best, t, first)
+    hq, wq = best.shape[2:]
+    d_r = torch.zeros(n.shape[:2] + (n.shape[2] + 2, n.shape[3] + 2),
+                      dtype=act.dtype, device=act.device)
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        d_r[:, :, dy:dy + 2 * hq:2, dx:dx + 2 * wq:2] += torch.where(
+            first == t, d_pooled, 0.0)
+    d_n = torch.where(n > 0, d_r[:, :, 1:-1, 1:-1], 0.0)
+    xhat = (act - _per_channel(mean)) * _per_channel(inv)
+    d64 = d_n.double()
+    return d_n, d64.sum((0, 2, 3)), (d64 * xhat.double()).sum((0, 2, 3))
+
+
+def bn_input_cotangent(act, d_n, coef):
+    """d_a = g1 (d_n - c1 - xhat c2), xhat = (act - mu) inv: the
+    train-mode batch norm's input cotangent, from coef = (g1, c1, c2, mu,
+    inv), each (64,)."""
+    g1, c1, c2, mu, inv = (_per_channel(v) for v in coef)
+    xhat = (act - mu) * inv
+    return g1 * ((d_n - c1) - xhat * c2)
+
+
+def stem_conv_dw_reference(x, act, d_n, coef):
+    """dW (64, 3, 7, 7) of the conv for the cotangent d_a."""
+    d_a = bn_input_cotangent(act, d_n, coef)
+    with full_float32():
+        return torch.nn.grad.conv2d_weight(x, (C_OUT, C_IN, K, K), d_a,
+                                           stride=2, padding=3)
+
+
+def stem_conv_dx_reference(act, d_n, coef, w):
+    """d_x (B, 3, 2 Ho, 2 Wo) of the conv for the cotangent d_a."""
+    d_a = bn_input_cotangent(act, d_n, coef)
+    b, _, ho, wo = act.shape
+    with full_float32():
+        return torch.nn.grad.conv2d_input((b, C_IN, 2 * ho, 2 * wo), w, d_a,
+                                          stride=2, padding=3)
+
+
+def stem_reference(x, w, gamma, beta, mean, var, train, eps=1e-5,
+                   momentum=0.9):
+    """The plain stem, differentiable by autograd in the inputs' dtype:
+    conv, batch norm (batch statistics with the biased variance in train
+    mode, else ``mean`` and ``var``), ReLU, maxpool. Returns (pooled, the
+    running mean and variance after flax's update r <- momentum r + (1 -
+    momentum) batch)."""
+    y = conv2d_f32(x, w, stride=2, padding=3)
+    if train:
+        bm = y.mean((0, 2, 3))
+        bv = y.var((0, 2, 3), unbiased=False)
+        new_mean = momentum * mean + (1 - momentum) * bm.detach()
+        new_var = momentum * var + (1 - momentum) * bv.detach()
+    else:
+        bm, bv, new_mean, new_var = mean, var, mean, var
+    yn = ((y - _per_channel(bm)) * _per_channel(torch.rsqrt(bv + eps))
+          * _per_channel(gamma) + _per_channel(beta))
+    return F.max_pool2d(F.relu(yn), 3, 2, padding=1), new_mean, new_var
+
+
+# --------------------------------------------------------------------------
+# input checks
+
+
+def _check_float32(name, t):
+    if t.dtype != torch.float32:
+        raise NotImplementedError(f"the stem kernels compute in float32; got "
+                                  f"a {t.dtype} {name}")
+
+
+def _check_x_shape(shape):
+    if len(shape) != 4 or shape[1] != C_IN:
+        raise ValueError(f"the stem kernels take (B, 3, H, W), got "
+                         f"{tuple(shape)}")
+    b, _, h, wd = shape
+    if b < 1 or h < 4 or wd < 4 or h % 4 or wd % 4:
+        raise ValueError(f"the stem kernels need B >= 1 and H, W multiples "
+                         f"of 4, got {tuple(shape)}")
+
+
+def _check_w(w):
+    _check_float32("conv weight", w)
+    if tuple(w.shape) != (C_OUT, C_IN, K, K):
+        raise NotImplementedError(
+            f"the stem kernels take a (64, 3, 7, 7) conv weight, got "
+            f"{tuple(w.shape)}")
+
+
+def check_stem_input(x, w):
+    """Raise unless x is (B, 3, H, W) float32 with H, W multiples of 4 and
+    w is (64, 3, 7, 7) float32 on x's device."""
+    _check_float32("input", x)
+    _check_w(w)
+    _check_x_shape(x.shape)
+    if w.device != x.device:
+        raise ValueError(f"conv weight on {w.device}, input on {x.device}")
+
+
+def _on_cuda(*tensors):
+    """True when every tensor is a contiguous float32 CUDA tensor on one
+    device, False when all are on the CPU; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"the stem kernels run on one cuda device or the "
+                         f"cpu, got {sorted(map(str, devices))}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"the stem kernels compute in float32, "
+                                      f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the stem kernels need contiguous tensors")
+    return True
+
+
+def _check_plane(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"stem {name}: expected {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _coef(rows):
+    return torch.stack([r.detach().reshape(C_OUT) for r in rows]).contiguous()
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.r2l_cuda_error_string(rc).decode())
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _strips(lib, kernel, device, shape, per_sm):
+    """CTAs per image of a strip-walking kernel on input ``shape`` (B, 3,
+    H, W): about ``per_sm`` CTAs per SM over the batch, at most one per
+    tile (the tile count comes from the source). A function of the shape
+    and the card only, so repeated launches are bitwise equal."""
+    b, _, h, w = shape
+    return max(1, min(lib.r2l_stem_tiles(kernel, h, w),
+                      per_sm * _sm_count(device.index or 0) // b))
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+
+
+def stem_conv(x, w, stats=True):
+    """(act (B, 64, H/2, W/2), float64 sum of act, float64 sum of act^2)
+    per channel; the sums are None without ``stats``. Kernel: CUDA
+    ``stem_conv_fwd_kernel``; plain: ``stem_conv_reference``."""
+    check_stem_input(x, w)
+    if not _on_cuda(x, w):
+        return stem_conv_reference(x, w, stats)
+    b, _, h, wd = x.shape
+    act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=torch.float32,
+                      device=x.device)
+    lib = _library()
+    strips = _strips(lib, _CONV_FWD, x.device, x.shape, 2)
+    partials = (torch.empty((b * strips, 2, C_OUT), dtype=torch.float64,
+                            device=x.device) if stats else None)
+    rc = lib.r2l_stem_conv_fwd(
+        x.data_ptr(), w.data_ptr(), act.data_ptr(),
+        None if partials is None else partials.data_ptr(), b, h, wd, strips,
+        _stream(x))
+    _raise_on(lib, rc, "stem_conv_fwd")
+    stem_conv.launches += 1
+    if not stats:
+        return act, None, None
+    sums = partials.sum(0)
+    return act, sums[0], sums[1]
+
+
+stem_conv.launches = 0
+
+
+def stem_bnpool(act, alpha, beta):
+    """maxpool 3x3/2 pad 1 of relu(act * alpha + beta): (B, 64, Ho/2,
+    Wo/2). Kernel: CUDA ``stem_bnpool_kernel``; plain:
+    ``stem_bnpool_reference``."""
+    b, c, ho, wo = act.shape
+    if c != C_OUT or ho % 2 or wo % 2:
+        raise ValueError(f"stem_bnpool takes (B, 64, Ho, Wo) with Ho, Wo "
+                         f"even, got {tuple(act.shape)}")
+    if not _on_cuda(act, alpha, beta):
+        return stem_bnpool_reference(act, alpha, beta)
+    out = torch.empty((b, C_OUT, ho // 2, wo // 2), dtype=torch.float32,
+                      device=act.device)
+    coef = _coef((alpha, beta))
+    lib = _library()
+    rc = lib.r2l_stem_bnpool(act.data_ptr(), coef.data_ptr(), out.data_ptr(),
+                             b, ho, wo, _stream(act))
+    _raise_on(lib, rc, "stem_bnpool")
+    stem_bnpool.launches += 1
+    return out
+
+
+stem_bnpool.launches = 0
+
+
+def stem_pool_bwd(act, d_pooled, alpha, beta, mean, inv):
+    """(d_n, float64 sum of d_n, float64 sum of d_n * xhat) per channel.
+    Kernel: CUDA ``stem_pool_bwd_kernel``; plain:
+    ``stem_pool_bwd_reference``."""
+    b, c, ho, wo = act.shape
+    if c != C_OUT or ho % 2 or wo % 2:
+        raise ValueError(f"stem_pool_bwd takes act (B, 64, Ho, Wo) with Ho, "
+                         f"Wo even, got {tuple(act.shape)}")
+    _check_plane("pooled cotangent", d_pooled, (b, C_OUT, ho // 2, wo // 2))
+    if not _on_cuda(act, d_pooled, alpha, beta, mean, inv):
+        return stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv)
+    if b * C_OUT > 65535:
+        raise ValueError(f"stem_pool_bwd launches one grid z-slice per "
+                         f"plane; B={b} exceeds 1023")
+    lib = _library()
+    d_n = torch.empty_like(act)
+    partials = torch.empty(
+        (b, C_OUT, lib.r2l_stem_tiles(_POOL_BWD, 2 * ho, 2 * wo), 2),
+        dtype=torch.float32, device=act.device)
+    coef = _coef((alpha, beta, mean, inv))
+    rc = lib.r2l_stem_pool_bwd(act.data_ptr(), d_pooled.data_ptr(),
+                               coef.data_ptr(), d_n.data_ptr(),
+                               partials.data_ptr(), b, ho, wo, _stream(act))
+    _raise_on(lib, rc, "stem_pool_bwd")
+    stem_pool_bwd.launches += 1
+    sums = partials.double().sum((0, 2))
+    return d_n, sums[:, 0], sums[:, 1]
+
+
+stem_pool_bwd.launches = 0
+
+
+def _check_bwd(x_shape, act, d_n):
+    b, _, h, wd = x_shape
+    _check_plane("act", act, (b, C_OUT, h // 2, wd // 2))
+    _check_plane("d_n", d_n, act.shape)
+
+
+def stem_conv_dw(x, act, d_n, coef):
+    """dW (64, 3, 7, 7) for d_a = ``bn_input_cotangent(act, d_n, coef)``.
+    Kernel: CUDA ``stem_conv_dw_kernel`` (per-CTA partials summed here in
+    float64); plain: ``stem_conv_dw_reference``."""
+    _check_float32("input", x)
+    _check_x_shape(x.shape)
+    _check_bwd(x.shape, act, d_n)
+    if not _on_cuda(x, act, d_n, *coef):
+        return stem_conv_dw_reference(x, act, d_n, coef)
+    b, _, h, wd = x.shape
+    lib = _library()
+    # 8 CTAs per SM: each thread's float32 sums cover fewer positions
+    strips = _strips(lib, _CONV_DW, x.device, x.shape, 8)
+    partials = torch.empty((b * strips, C_OUT * TAPS), dtype=torch.float32,
+                           device=x.device)
+    cf = _coef(coef)
+    rc = lib.r2l_stem_conv_dw(x.data_ptr(), act.data_ptr(), d_n.data_ptr(),
+                              cf.data_ptr(), partials.data_ptr(), b, h, wd,
+                              strips, _stream(x))
+    _raise_on(lib, rc, "stem_conv_dw")
+    stem_conv_dw.launches += 1
+    return (partials.double().sum(0).float()
+            .reshape(C_OUT, C_IN, K, K))
+
+
+stem_conv_dw.launches = 0
+
+
+def stem_conv_dx(act, d_n, coef, w):
+    """d_x (B, 3, 2 Ho, 2 Wo) for d_a = ``bn_input_cotangent(act, d_n,
+    coef)``. Kernel: CUDA ``stem_conv_dx_kernel``; plain:
+    ``stem_conv_dx_reference``."""
+    b, _, ho, wo = act.shape
+    x_shape = (b, C_IN, 2 * ho, 2 * wo)
+    _check_w(w)
+    _check_x_shape(x_shape)
+    _check_bwd(x_shape, act, d_n)
+    if not _on_cuda(act, d_n, w, *coef):
+        return stem_conv_dx_reference(act, d_n, coef, w)
+    d_x = torch.empty(x_shape, dtype=torch.float32, device=act.device)
+    lib = _library()
+    strips = _strips(lib, _CONV_DX, act.device, x_shape, 2)
+    cf = _coef(coef)
+    rc = lib.r2l_stem_conv_dx(act.data_ptr(), d_n.data_ptr(), cf.data_ptr(),
+                              w.data_ptr(), d_x.data_ptr(), b, 2 * ho,
+                              2 * wo, strips, _stream(act))
+    _raise_on(lib, rc, "stem_conv_dx")
+    stem_conv_dx.launches += 1
+    return d_x
+
+
+stem_conv_dx.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the stem
+
+
+def batch_stats(s1, s2, n):
+    """(mean, biased variance) in float32 from the float64 per-channel
+    sums of act and act^2 over n positions: the one-pass E[act^2] -
+    E[act]^2, clamped at 0, as JAX ``stem_train``."""
+    mean = s1 / n
+    return mean.float(), (s2 / n - mean * mean).clamp_min(0.0).float()
+
+
+def bn_fold(gamma, beta, mean, var, eps=1e-5):
+    """(inv, alpha, beta - mean alpha) of a batch norm with these
+    statistics: n = act * alpha + (beta - mean alpha)."""
+    inv = torch.rsqrt(var + eps)
+    alpha = gamma * inv
+    return inv, alpha, beta - mean * alpha
+
+
+def bn_backward_coef(gamma, mean, inv, sd, sdx, n):
+    """``coef`` (g1, c1, c2, mu, inv) of ``bn_input_cotangent`` from the
+    pool backward's float64 sums sd = sum d_n and sdx = sum d_n xhat over
+    n positions."""
+    return gamma * inv, (sd / n).float(), (sdx / n).float(), mean, inv
+
+
+class StemTrain(torch.autograd.Function):
+    """``apply(x, w, gamma, beta, eps)`` -> (pooled, batch mean, batch
+    variance): the train-mode stem (JAX ``stem_train`` and its VJP). The
+    forward runs the conv and BN-pool kernels; the variance is the biased
+    one-pass E[act^2] - E[act]^2 in float64. The backward runs the pool
+    backward, dW and (when x needs a gradient) d_x kernels, with dgamma =
+    sum d_n xhat and dbeta = sum d_n. The batch statistics get no
+    gradient (they feed only the running-statistics update)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, eps):
+        act, s1, s2 = stem_conv(x, w)
+        mean, var = batch_stats(s1, s2, act.numel() // C_OUT)
+        inv, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
+        pooled = stem_bnpool(act, alpha, shift)
+        ctx.save_for_backward(x, w, act, gamma, alpha, shift, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_pooled, _d_mean, _d_var):
+        x, w, act, gamma, alpha, shift, mean, inv = ctx.saved_tensors
+        d_n, sd, sdx = stem_pool_bwd(act, d_pooled.contiguous(), alpha, shift,
+                                     mean, inv)
+        coef = bn_backward_coef(gamma, mean, inv, sd, sdx,
+                                act.numel() // C_OUT)
+        need_x, need_w, need_g, need_b, _ = ctx.needs_input_grad
+        d_w = stem_conv_dw(x, act, d_n, coef) if need_w else None
+        d_x = stem_conv_dx(act, d_n, coef, w) if need_x else None
+        return (d_x, d_w, sdx.float() if need_g else None,
+                sd.float() if need_b else None, None)
+
+
+def stem_train(x, w, gamma, beta, eps=1e-5):
+    """Train-mode fused stem: x (B, 3, H, W) -> (pooled (B, 64, H/4, W/4),
+    batch mean, biased batch variance), differentiable in x, w, gamma and
+    beta (``StemTrain``)."""
+    check_stem_input(x, w)
+    return StemTrain.apply(x.contiguous(), w.contiguous(), gamma, beta, eps)
+
+
+class _StemEval(torch.autograd.Function):
+    """The eval-mode stem: forward kernels only. Like the JAX package's
+    ``stem_eval``, a bare kernel call, it has no backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, mean, var, eps):
+        act, _, _ = stem_conv(x, w, stats=False)
+        _, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
+        return stem_bnpool(act, alpha, shift)
+
+    @staticmethod
+    def backward(ctx, d_pooled):
+        raise NotImplementedError(
+            "the eval-mode stem kernel has no backward (neither has the JAX "
+            "package's stem_eval): differentiate through a stem_kernel=True "
+            "ResNet in train mode, or build it with stem_kernel=False")
+
+
+def stem_eval(x, w, gamma, beta, mean, var, eps=1e-5):
+    """Eval-mode fused stem, the batch norm folded with the running
+    statistics: x (B, 3, H, W) -> (B, 64, H/4, W/4). A backward through it
+    raises ``NotImplementedError``."""
+    check_stem_input(x, w)
+    return _StemEval.apply(x.contiguous(), w.contiguous(), gamma, beta, mean,
+                           var, eps)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def _library():
+    lib = load("stem")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.r2l_stem_conv_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      ptr]
+    lib.r2l_stem_bnpool.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.r2l_stem_pool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      ptr]
+    lib.r2l_stem_conv_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     i32, ptr]
+    lib.r2l_stem_conv_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     i32, ptr]
+    lib.r2l_stem_tiles.argtypes = [i32, i32, i32]
+    for fn in (lib.r2l_stem_conv_fwd, lib.r2l_stem_bnpool,
+               lib.r2l_stem_pool_bwd, lib.r2l_stem_conv_dw,
+               lib.r2l_stem_conv_dx, lib.r2l_stem_tiles):
+        fn.restype = i32
+    lib.r2l_cuda_error_string.argtypes = [i32]
+    lib.r2l_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -9,6 +9,10 @@ differ from torchvision's in three places:
   * the last batch norm of every block starts with a zero scale;
   * in train mode the batch norms update the running variance with the
     biased batch variance, as flax does (``FlaxBatchNorm2d``).
+
+``ResNet(stem_kernel=True)`` (JAX ``stem_pallas``) runs the stem, conv1 +
+bn1 + ReLU + maxpool, through the CUDA kernels of ``kernels/stem.py``. It
+keeps the parameter names, so state dicts load either way.
 """
 
 import math
@@ -18,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from raw2logit_tpu_torch import resolve_device
+from raw2logit_tpu_torch.kernels.stem import stem_eval, stem_train
 
 
 class Conv2dSame(nn.Conv2d):
@@ -51,18 +56,25 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        # torch's op updates a copy of the running variance (the graph
-        # keeps that copy, so the buffer itself may change afterwards):
-        # kept + momentum * var * n / (n - 1), with kept = (1 - m) * old
+        # with momentum 1 torch's op writes the batch mean and the
+        # unbiased batch variance into the tensors it is given
         n = x.numel() // x.shape[1]
-        updated = self.running_var.clone()
-        self.num_batches_tracked.add_(1)
-        y = F.batch_norm(x, self.running_mean, updated, self.weight,
-                         self.bias, True, self.momentum, self.eps)
-        with torch.no_grad():
-            kept = self.running_var * (1.0 - self.momentum)
-            self.running_var.copy_((updated - kept) * ((n - 1) / n) + kept)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        self.update_running(mean, var * ((n - 1) / n))
         return y
+
+    @torch.no_grad()
+    def update_running(self, mean, biased_var):
+        """flax's update of the running statistics from a batch's mean and
+        biased variance: r <- (1 - m) r + m batch, m the torch momentum;
+        counts the batch."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(biased_var, alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 def _bn(features, device):
@@ -148,12 +160,25 @@ class ResNet(nn.Module):
     ``device`` None means cuda (raises when CUDA is missing); the random
     init draws from ``generator`` (a ``torch.Generator`` on that device,
     seeded 0 when None).
+
+    ``stem_kernel``: the classifier path (not ``return_features``, which
+    needs the pre-pool plane) runs the stem through the fused kernels,
+    ``StemTrain`` in train mode (bn1's running statistics updated as
+    ``FlaxBatchNorm2d`` does) and ``stem_eval`` in eval mode, whose
+    backward raises. It needs 64 filters, 3 input channels, float32 and
+    H, W multiples of 4, and raises otherwise.
     """
 
     def __init__(self, block_cls=BasicBlock, stage_sizes=(2, 2, 2, 2),
                  num_classes=2, num_filters=64, in_channels=3, device=None,
-                 generator=None):
+                 generator=None, stem_kernel=False):
         super().__init__()
+        if stem_kernel and (num_filters != 64 or in_channels != 3):
+            raise NotImplementedError(
+                f"stem_kernel needs 64 filters and 3 input channels (the "
+                f"kernels hard-code them), got {num_filters} and "
+                f"{in_channels}")
+        self.stem_kernel = stem_kernel
         device = resolve_device(device)
         self.conv1 = nn.Conv2d(in_channels, num_filters, 7, 2, padding=3,
                                bias=False, device=device)
@@ -190,12 +215,25 @@ class ResNet(nn.Module):
             for block in layer:
                 block.zero_init_last_bn()
 
+    def _fused_stem(self, x):
+        bn = self.bn1
+        if not self.training:
+            return stem_eval(x, self.conv1.weight, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var, bn.eps)
+        pooled, mean, var = stem_train(x, self.conv1.weight, bn.weight,
+                                       bn.bias, bn.eps)
+        bn.update_running(mean, var)
+        return pooled
+
     def forward(self, x, return_features=False, depth=5):
         feats = [x]
-        y = F.relu(self.bn1(self.conv1(x)))
-        feats.append(y)  # 1/2
-        # 3x3/2 maxpool, pad (1, 1) of -inf
-        y = F.max_pool2d(y, 3, 2, padding=1)
+        if self.stem_kernel and not return_features:
+            y = self._fused_stem(x)
+        else:
+            y = F.relu(self.bn1(self.conv1(x)))
+            feats.append(y)  # 1/2
+            # 3x3/2 maxpool, pad (1, 1) of -inf
+            y = F.max_pool2d(y, 3, 2, padding=1)
         layers = (self.layers[:max(depth - 1, 0)] if return_features
                   else self.layers)
         for layer in layers:
@@ -207,9 +245,10 @@ class ResNet(nn.Module):
 
 
 def resnet_model(model="resnet18", in_channels=3, fc_out_features=2,
-                 device=None, generator=None):
+                 device=None, generator=None, stem_kernel=False):
     """Factory mirroring the JAX ``resnet_model`` (random init only)."""
     block_cls, stage_sizes = RESNET_CONFIGS[model.lower()]
     return ResNet(block_cls=block_cls, stage_sizes=stage_sizes,
                   num_classes=fc_out_features, in_channels=in_channels,
-                  device=device, generator=generator)
+                  device=device, generator=generator,
+                  stem_kernel=stem_kernel)

@@ -39,16 +39,16 @@ def full_float32():
 
 
 class _Conv2dF32(torch.autograd.Function):
-    """``F.conv2d`` (no padding) whose forward and backward both run
+    """``F.conv2d`` (groups, stride, padding) whose forward and backward run
     under ``full_float32``: a backward runs after the caller's block has
     ended, so a context around the forward alone would leave it in TF32."""
 
     @staticmethod
-    def forward(ctx, x, weight, groups):
+    def forward(ctx, x, weight, groups, stride=1, padding=0):
         ctx.save_for_backward(x, weight)
-        ctx.groups = groups
+        ctx.conv = dict(groups=groups, stride=stride, padding=padding)
         with full_float32():
-            return F.conv2d(x, weight, groups=groups)
+            return F.conv2d(x, weight, **ctx.conv)
 
     @staticmethod
     @once_differentiable
@@ -58,20 +58,21 @@ class _Conv2dF32(torch.autograd.Function):
         with full_float32():
             if ctx.needs_input_grad[0]:
                 dx = torch.nn.grad.conv2d_input(x.shape, weight, g,
-                                                groups=ctx.groups)
+                                                **ctx.conv)
             if ctx.needs_input_grad[1]:
                 dw = torch.nn.grad.conv2d_weight(x, weight.shape, g,
-                                                 groups=ctx.groups)
-        return dx, dw, None
+                                                 **ctx.conv)
+        return (dx, dw) + (None,) * (len(ctx.needs_input_grad) - 2)
 
 
-def conv2d_f32(x, weight, groups=1):
-    """``F.conv2d(x, weight, groups=groups)`` without padding, in full
-    float32 on the card (forward and backward). On the CPU, where there
-    is no TF32, it is ``F.conv2d`` itself."""
+def conv2d_f32(x, weight, groups=1, stride=1, padding=0):
+    """``F.conv2d(x, weight, groups=groups, stride=stride,
+    padding=padding)`` in full float32 on the card (forward and backward).
+    On the CPU, where there is no TF32, it is ``F.conv2d`` itself."""
     if x.device.type == "cpu":
-        return F.conv2d(x, weight, groups=groups)
-    return _Conv2dF32.apply(x, weight, groups)
+        return F.conv2d(x, weight, groups=groups, stride=stride,
+                        padding=padding)
+    return _Conv2dF32.apply(x, weight, groups, stride, padding)
 
 
 def conv2d_single(x, kernel, pad_mode="zero"):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (the serving and training forwards, both
-backward variants, ``FusedISP`` around them, and the SSIM aux kernel with
-``SSIMAux``) against their plain PyTorch versions, on the card, and the
-plain versions' full float32 under TF32 settings. Imports no JAX, so
-that it runs where the port runs:
+backward variants, ``FusedISP`` around them, the SSIM aux kernel with
+``SSIMAux``, and the five stem kernels with ``StemTrain`` and the
+``stem_kernel`` ResNet) against their plain PyTorch versions, on the card,
+and the plain versions' full float32 under TF32 settings. Imports no JAX,
+so that it runs where the port runs:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -14,15 +15,20 @@ import pytest
 import torch
 
 from chip_smoke import (BWD_F64_PARAM, RES_TOL, SSIM_GRAD_REL, SSIM_SHAPES,
-                        SSIM_VALUE_REL, SSIM_WEIGHTS, VARIANT_TOL,
-                        bn_cotangent, bn_like_pair, bwd_agreement,
-                        kernel_tolerance, max_rel, processor, smooth_mosaics,
-                        ssim_agreement, witness)
+                        SSIM_VALUE_REL, SSIM_WEIGHTS, STEM_GRAD_TOL,
+                        VARIANT_TOL, bn_cotangent, bn_like_pair,
+                        bwd_agreement, kernel_tolerance, l2_rel, max_rel,
+                        processor, smooth_mosaics, ssim_agreement,
+                        stem_agreement, stem_input, stem_params, witness)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
     SSIMAux, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
     fused_isp_reference, fused_isp_train, fused_isp_train_reference,
-    ssim_aux_reference, ssim_aux_value_grad, unpack_grads)
+    ssim_aux_reference, ssim_aux_value_grad, stem_bnpool, stem_conv,
+    stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
+    stem_conv_dx_reference, stem_conv_reference, stem_eval, stem_pool_bwd,
+    stem_train, unpack_grads)
+from raw2logit_tpu_torch.models import ResNet
 
 # the camera of tests/test_pallas.py
 MILD_CAM = (
@@ -305,3 +311,125 @@ def test_plain_versions_stay_float32_under_tf32(cuda_tf32):
     assert float((d_x.double() - d_x64).abs().max()) <= SSIM_GRAD_REL * float(
         d_x64.abs().max())
     assert torch.backends.cudnn.allow_tf32  # the caller's setting is back
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["isp", "random"])
+@pytest.mark.parametrize("shape", [(4, 3, 256, 256), (3, 3, 68, 44),
+                                   (1, 3, 4, 8)], ids=str)
+def test_stem_kernels_match_plain(shape, inputs, cuda):
+    """Each stem kernel against its plain version on the same inputs
+    (chip_smoke.stem_agreement: the STEM_* limits, pooled and d_n bitwise,
+    dW and d_x against float64 too), random inputs with planted ties in
+    the pool, two launches bitwise equal."""
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, shape, inputs)
+    for name, (stats, ok) in stem_agreement(x, w, gamma, beta,
+                                            inputs == "random").items():
+        assert ok, (name, stats)
+
+
+@pytest.mark.gpu
+def test_stem_kernels_check_their_input(cuda):
+    w, gamma, beta = stem_params(cuda)
+    x = torch.randn(2, 3, 32, 32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        stem_conv(x.double(), w.double())
+    with pytest.raises(NotImplementedError):
+        stem_conv(x, w[:32].contiguous())
+    with pytest.raises(ValueError):
+        stem_conv(x[..., :30].contiguous(), w)  # W not a multiple of 4
+    with pytest.raises(ValueError):
+        stem_conv(x.transpose(2, 3), w)  # not contiguous
+    with pytest.raises(ValueError):
+        stem_conv(x, w.cpu())
+    act, _, _ = stem_conv(x, w)
+    with pytest.raises(ValueError):
+        stem_bnpool(act[:, :, :15].contiguous(), gamma, beta)
+    with pytest.raises(ValueError):
+        stem_pool_bwd(act, torch.zeros(2, 64, 8, 7, device=cuda), gamma,
+                      beta, beta, gamma)
+    coef = (gamma, beta, beta, beta, gamma)
+    with pytest.raises(ValueError):
+        stem_conv_dw(x, act, act[:1].contiguous(), coef)
+    with pytest.raises(ValueError):
+        stem_conv_dx(act, act.transpose(2, 3), coef, w)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_resnet_reaches_its_parameters_and_input(cuda):
+    """``ResNet(stem_kernel=True)`` in train mode: one launch of each stem
+    kernel per forward and backward; conv1, bn1 and the input get
+    gradients near the plain stem's (relative L2 within STEM_GRAD_TOL: a
+    pool argmax that a rounding difference moves shifts one cotangent);
+    in eval mode under no_grad only the forward kernels run, and a
+    backward through it raises."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(4, 3, 64, 64, device=cuda, generator=gen)
+    grads = {}
+    for flag in (True, False):
+        model = ResNet(stage_sizes=(1, 1), device=cuda, stem_kernel=flag)
+        xg = x.clone().requires_grad_(True)
+        before = [fn.launches for fn in (stem_conv, stem_bnpool,
+                                         stem_pool_bwd, stem_conv_dw,
+                                         stem_conv_dx)]
+        model.train()(xg).square().sum().backward()
+        after = [fn.launches for fn in (stem_conv, stem_bnpool,
+                                        stem_pool_bwd, stem_conv_dw,
+                                        stem_conv_dx)]
+        assert [a - b for a, b in zip(after, before)] == [int(flag)] * 5
+        grads[flag] = [xg.grad, model.conv1.weight.grad,
+                       model.bn1.weight.grad, model.bn1.bias.grad]
+    for got, want in zip(grads[True], grads[False]):
+        assert got is not None and bool(got.abs().sum() > 0)
+        assert l2_rel(got, want) <= STEM_GRAD_TOL
+    model.stem_kernel = True
+    model.eval()
+    launches = stem_conv.launches, stem_pool_bwd.launches
+    with torch.no_grad():
+        model(x)
+    assert (stem_conv.launches, stem_pool_bwd.launches) == (
+        launches[0] + 1, launches[1])
+    with pytest.raises(NotImplementedError):
+        model(x.clone().requires_grad_(True)).sum().backward()
+
+
+@pytest.mark.gpu
+def test_stem_functions_repeat_bitwise(cuda):
+    """stem_train (values and every gradient) and stem_eval: two calls on
+    the same inputs are bitwise equal."""
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, (8, 3, 128, 128), "random")
+    runs = []
+    for _ in range(2):
+        args = [t.clone().requires_grad_(True) for t in (x, w, gamma, beta)]
+        pooled, mean, var = stem_train(*args)
+        grads = torch.autograd.grad(pooled.square().sum(), args)
+        with torch.no_grad():
+            ev = stem_eval(x, w, gamma, beta, mean, var)
+        runs.append([pooled, mean, var, ev, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_stem_plain_versions_stay_float32_under_tf32(cuda_tf32):
+    """With TF32 allowed, the stem's plain conv, dW and d_x match their
+    float64 selves to float32 rounding (in TF32 each would miss by ~1e-3)."""
+    w, gamma, beta = stem_params(cuda_tf32)
+    x = stem_input(cuda_tf32, (4, 3, 128, 128), "random")
+    act, _, _ = stem_conv_reference(x, w)
+    act64, _, _ = stem_conv_reference(x.double(), w.double())
+    assert max_rel(act.double(), act64) <= 1e-5
+    d_n = torch.randn_like(act)
+    coef = (gamma, 0.01 * beta, 0.01 * beta, 0.1 * beta, gamma)
+    coef64 = tuple(c.double() for c in coef)
+    for got, want in (
+            (stem_conv_dw_reference(x, act, d_n, coef),
+             stem_conv_dw_reference(x.double(), act.double(), d_n.double(),
+                                    coef64)),
+            (stem_conv_dx_reference(act, d_n, coef, w),
+             stem_conv_dx_reference(act.double(), d_n.double(), coef64,
+                                    w.double()))):
+        assert max_rel(got.double(), want) <= 1e-5
+    assert torch.backends.cudnn.allow_tf32
