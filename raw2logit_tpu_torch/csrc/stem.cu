@@ -26,12 +26,20 @@
 // convolutions are bound by operations, 2 * 147 FMA operands per act
 // element, 78.9 GFLOP each (1.18 ms at 67 TFLOP/s of non-tensor f32); the
 // BN-pool pass and the pool backward by bytes (1.34 and 2.42 GB, 0.40 and
-// 0.72 ms at 3.35 TB/s). Design, simple and right first: direct FMAs from
-// shared memory, register blocking so that each shared load feeds several
-// FMAs, the weights staged in shared memory once per CTA, and CTAs that
-// walk a strip of tiles of one image (grid (strips, B)) so that the
+// 0.72 ms at 3.35 TB/s). Design: direct FMAs from shared memory, register
+// blocking so that each shared load feeds several FMAs, the weights staged
+// in shared memory once per CTA, and CTAs that walk many tiles so that the
 // weights are read from L2 a few hundred times, not once per tile. No
-// tensor cores, no TMA (later PRs).
+// tensor cores (TF32 would break the float32 contract), no TMA.
+//
+// dW and d_x were redesigned for Hopper: one CTA per SM walking all tiles
+// of the batch with a stride of the grid; act and d_n staged by cp.async
+// into double buffers, so that the next stage's copies overlap this
+// stage's FMAs; d_a formed once per staged element; register tiles that
+// cut shared loads per FMA to 12/80 (dW) and 76/768 (d_x, the
+// space-to-depth form of the TPU kernel, whose 16 taps per output pad 147
+// real taps to 192: its FFMA floor is 1.54 ms at B = 256, against the
+// 1.18 ms of the real taps).
 //
 // Cross-CTA reductions (the BN statistics, dW) are per-CTA partials in a
 // fixed order, summed by the wrapper in float64: no atomics, so two
@@ -70,6 +78,33 @@ __device__ __forceinline__ float bn_input_cotangent(float a, float dn,
                                                     float inv) {
   const float xhat = __fmul_rn(__fsub_rn(a, mu), inv);
   return __fmul_rn(g1, __fsub_rn(__fsub_rn(dn, c1), __fmul_rn(xhat, c2)));
+}
+
+// cp.async of one float from device memory to shared memory; with `in`
+// false the slot is filled with zero and nothing is read.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// The same for 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
+                                               bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -328,217 +363,432 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
 }
 
 // ---------------------------------------------------------------------------
-// 4. dW partials: dW[o, t] = sum over positions p of d_a[o, p] * patch[p, t].
-// Tile: 4 x 32 output positions. Shared: the input tile with its halo,
-// 3 x 13 x 69 (zero outside the image), and d_a as [position][o] with a
-// row stride of 68 floats (16-byte rows, and the transposing stores spread
-// over the banks). Thread: 4 channels (tid % 16) x 10 taps (tid / 16; taps
-// 147..159 are padding, never written): 40 accumulators over the CTA's
-// strip; per position one float4 of d_a and 10 input loads feed 40 FMAs.
+// 4. dW partials: dW[o, t] = sum over positions p of d_a[o, p] * patch[p, t],
+// the product (64 x positions) . (positions x 147).
+//
+// Tile: 16 x 32 output positions; a CTA walks tiles (image-major) with a
+// stride of the grid, one CTA per SM. The tile is staged two rows (64
+// positions) at a time: act and d_n for the 64 channels by cp.async
+// (16-byte copies where Wo is a multiple of 4) into a double buffer, so
+// that the next stage's copies overlap this stage's FMAs; the tile's
+// input with its halo, 3 x 37 x 69 (zero outside the image), likewise,
+// with the tile's first stage. Each stage forms d_a once per element into
+// [position][channel] rows of 68 floats: a thread reads 4 positions of one
+// channel (a float4; raw rows of 68 floats, so a quarter-warp's 8 channels
+// cover the 32 banks) and a warp stores 32 consecutive channels of a
+// position: no bank conflict on either side. The two halves of the CTA
+// (warps 0-3, 4-7) take one row of the stage each. Thread: 8 channels
+// (4 cg .. 4 cg + 3 and 32 + 4 cg .., two conflict-free float4 loads) x 10
+// taps (taps 147..159 are padding, never written): per position 2 float4
+// and 10 scalar loads feed 80 FMAs. Sums in two levels: a fresh
+// accumulator per stage (the 32 positions of the half's row) in
+// registers, added into the CTA's in shared memory ([value][thread],
+// conflict-free); each half writes its own partials. (One chain per tile,
+// 256 positions, put dW at 72x40 2.0x further from float64 than the
+// plain version.)
 
-constexpr int DW_TH = 4, DW_TW = 32, DW_TP = DW_TH * DW_TW;  // 128 positions
-constexpr int DW_IR = 2 * DW_TH + 5;   // 13
-constexpr int DW_IC = 2 * DW_TW + 5;   // 69
+constexpr int DW_TH = 16, DW_TW = 32;     // 512 positions per tile
+constexpr int DW_SR = 2;                  // rows per stage, one per half
+constexpr int DW_SP = DW_SR * DW_TW;      // 64 positions per stage
+constexpr int DW_NS = DW_TH / DW_SR;      // 8 stages per tile
+constexpr int DW_RS = DW_SP + 4;          // raw row stride (float4 rows)
+constexpr int DW_DS = C_OUT + 4;          // d_a row stride (float4 rows)
+constexpr int DW_IR = 2 * DW_TH + 5;      // 37
+constexpr int DW_IC = 2 * DW_TW + 5;      // 69
 constexpr int DW_XS = C_IN * DW_IR * DW_IC;
-constexpr int DW_DS = 68;              // d_a row stride
-constexpr int DW_TB = 10;              // taps per thread
+constexpr int DW_RAW = 2 * C_OUT * DW_RS;  // act and d_n of one stage
+constexpr int DW_TB = 10;                 // taps per thread
+constexpr int DW_ACC = 8 * DW_TB * NTHREADS;  // the CTA's sums
 constexpr size_t DW_SMEM =
-    (size_t)(DW_XS + DW_TP * DW_DS + 5 * C_OUT) * sizeof(float);
+    (size_t)(DW_SP * DW_DS + 2 * DW_RAW + 2 * DW_XS + 5 * C_OUT + DW_ACC) *
+    sizeof(float);
 
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
                     const float* __restrict__ dn,
                     const float* __restrict__ coef,
-                    float* __restrict__ partials, int H, int W, int strips) {
+                    float* __restrict__ partials, int B, int H, int W) {
   extern __shared__ __align__(16) float sm[];
-  float* das = sm;                      // [DW_TP][DW_DS]
-  float* xs = das + DW_TP * DW_DS;      // [C_IN][DW_IR][DW_IC]
-  float* cf = xs + DW_XS;               // [5][C_OUT]
+  float* das = sm;                        // [DW_SP][DW_DS]
+  float* raw = das + DW_SP * DW_DS;       // [2][act, d_n][C_OUT][DW_RS]
+  float* xs = raw + 2 * DW_RAW;           // [2][C_IN][DW_IR][DW_IC]
+  float* cf = xs + 2 * DW_XS;             // [5][C_OUT]
+  float* sacc = cf + 5 * C_OUT;           // [8 * DW_TB][NTHREADS]
 
-  const int tid = threadIdx.x;
-  const int ob = tid & 15, tb = tid >> 4;
-  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int half = tid >> 7, cg = lane & 7;
+  const int tg = ((tid & 127) >> 5) * 4 + (lane >> 3);
   const int Ho = H / 2, Wo = W / 2;
-  const int nty = cdiv(Ho, DW_TH), ntx = cdiv(Wo, DW_TW);
-  const float* xb = x + (size_t)b * C_IN * H * W;
-  const float* ab = act + (size_t)b * C_OUT * Ho * Wo;
-  const float* db = dn + (size_t)b * C_OUT * Ho * Wo;
+  const bool vec = (Wo & 3) == 0;  // act rows 16-byte aligned
+  const int ntx = cdiv(Wo, DW_TW), tiles = cdiv(Ho, DW_TH) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * DW_NS;
 
   for (int i = tid; i < 5 * C_OUT; i += NTHREADS) cf[i] = coef[i];
+  for (int i = 0; i < 8 * DW_TB; ++i) sacc[i * NTHREADS + tid] = 0.f;
   int off[DW_TB];
 #pragma unroll
   for (int k = 0; k < DW_TB; ++k) {
-    const int t = DW_TB * tb + k;
+    const int t = DW_TB * tg + k;
     off[k] = t < TAPS ? ((t / KK) * DW_IR + (t % KK) / K) * DW_IC + t % K : 0;
   }
-  float acc[4][DW_TB];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < DW_TB; ++k) acc[j][k] = 0.f;
 
-  for (int tile = blockIdx.x; tile < nty * ntx; tile += strips) {
-    const int oy0 = (tile / ntx) * DW_TH, ox0 = (tile % ntx) * DW_TW;
-    const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;
-    __syncthreads();  // the previous tile's reads are done (and cf is set)
-    for (int i = tid; i < DW_XS; i += NTHREADS) {
-      const int c = i / (DW_IR * DW_IC), rem = i % (DW_IR * DW_IC);
-      const int yy = iy0 + rem / DW_IC, xx = ix0 + rem % DW_IC;
-      xs[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? xb[((size_t)c * H + yy) * W + xx] : 0.f;
-    }
-    for (int i = tid; i < DW_TP * C_OUT; i += NTHREADS) {
-      const int p = i % DW_TP, o = i / DW_TP;
-      const int oy = oy0 + p / DW_TW, ox = ox0 + p % DW_TW;
-      float v = 0.f;
-      if (oy < Ho && ox < Wo) {
-        const size_t at = ((size_t)o * Ho + oy) * Wo + ox;
-        v = bn_input_cotangent(ab[at], db[at], cf[o], cf[C_OUT + o],
-                               cf[2 * C_OUT + o], cf[3 * C_OUT + o],
-                               cf[4 * C_OUT + o]);
+  // item i: stage i % DW_NS of the CTA's tile i / DW_NS; oy0 is the
+  // stage's first row
+  auto origin = [&](int item, int& b, int& oy0, int& ox0) {
+    const int g = (int)blockIdx.x + (item / DW_NS) * (int)gridDim.x;
+    b = g / tiles;
+    const int tile = g % tiles;
+    oy0 = (tile / ntx) * DW_TH + (item % DW_NS) * DW_SR;
+    ox0 = (tile % ntx) * DW_TW;
+  };
+  auto issue = [&](int item) {
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    if (item % DW_NS == 0) {
+      float* xd = xs + ((item / DW_NS) & 1) * DW_XS;
+      const float* xb = x + (size_t)b * C_IN * H * W;
+      const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;
+      for (int i = tid; i < DW_XS; i += NTHREADS) {
+        const int c = i / (DW_IR * DW_IC), rem = i % (DW_IR * DW_IC);
+        const int yy = iy0 + rem / DW_IC, xx = ix0 + rem % DW_IC;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        cp_async_f32(xd + i, in ? xb + ((size_t)c * H + yy) * W + xx : xb,
+                     in);
       }
-      das[p * DW_DS + o] = v;
+    }
+    float* rd = raw + (item & 1) * DW_RAW;
+    const float* ab = act + (size_t)b * C_OUT * Ho * Wo;
+    const float* db = dn + (size_t)b * C_OUT * Ho * Wo;
+    // rows (tensor, o, stage row) of 32 positions
+    if (vec) {
+      for (int e = tid; e < 2 * C_OUT * DW_SR * (DW_TW / 4); e += NTHREADS) {
+        const int f = e % (DW_TW / 4), row = e / (DW_TW / 4);
+        const int sr = row % DW_SR, to = row / DW_SR;  // to = tensor * 64 + o
+        const int oy = oy0 + sr, ox = ox0 + 4 * f;
+        const float* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                        Ho * Wo;
+        const bool in = oy < Ho && ox < Wo;
+        cp_async_f32x4(rd + to * DW_RS + sr * DW_TW + 4 * f,
+                       in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    } else {
+      for (int e = tid; e < 2 * C_OUT * DW_SP; e += NTHREADS) {
+        const int p = e % DW_SP, to = e / DW_SP;
+        const int oy = oy0 + p / DW_TW, ox = ox0 + p % DW_TW;
+        const float* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                        Ho * Wo;
+        const bool in = oy < Ho && ox < Wo;
+        cp_async_f32(rd + to * DW_RS + p,
+                     in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    }
+  };
+
+  float tacc[8][DW_TB];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int k = 0; k < DW_TB; ++k) tacc[j][k] = 0.f;
+
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+  for (int item = 0; item < n_items; ++item) {
+    cp_async_wait_all();
+    __syncthreads();  // this item's copies landed; the last item's reads done
+    if (item + 1 < n_items) issue(item + 1);
+    cp_async_commit();
+
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    {
+      // d_a: thread = channel o (tid % 64) x groups of 4 positions
+      const int o = tid % C_OUT;
+      const float* ra = raw + (item & 1) * DW_RAW + o * DW_RS;
+      const float* rn = ra + C_OUT * DW_RS;
+      const float g1 = cf[o], c1 = cf[C_OUT + o], c2 = cf[2 * C_OUT + o],
+                  mu = cf[3 * C_OUT + o], inv = cf[4 * C_OUT + o];
+#pragma unroll
+      for (int k = 0; k < DW_SP / 4 / (NTHREADS / C_OUT); ++k) {
+        const int p0 = 4 * (tid / C_OUT + k * (NTHREADS / C_OUT));
+        const float4 a4 = *reinterpret_cast<const float4*>(ra + p0);
+        const float4 n4 = *reinterpret_cast<const float4*>(rn + p0);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float nv[4] = {n4.x, n4.y, n4.z, n4.w};
+        const bool row_in = oy0 + p0 / DW_TW < Ho;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = row_in && ox0 + (p0 + j) % DW_TW < Wo;
+          das[(p0 + j) * DW_DS + o] =
+              in ? bn_input_cotangent(av[j], nv[j], g1, c1, c2, mu, inv)
+                 : 0.f;
+        }
+      }
     }
     __syncthreads();
-    for (int p = 0; p < DW_TP; ++p) {
-      const float* xp = xs + 2 * (p / DW_TW) * DW_IC + 2 * (p % DW_TW);
-      const float4 a4 = *reinterpret_cast<const float4*>(das + p * DW_DS +
-                                                         4 * ob);
+
+    const int row = (item % DW_NS) * DW_SR + half;  // row in the tile
+    const float* xrow =
+        xs + ((item / DW_NS) & 1) * DW_XS + 2 * row * DW_IC;
+    const float4* drow =
+        reinterpret_cast<const float4*>(das + half * DW_TW * DW_DS);
+#pragma unroll 8
+    for (int j = 0; j < DW_TW; ++j) {
+      const float4 a0 = drow[j * (DW_DS / 4) + cg];
+      const float4 a1 = drow[j * (DW_DS / 4) + 8 + cg];
+      const float* xp = xrow + 2 * j;
 #pragma unroll
       for (int k = 0; k < DW_TB; ++k) {
         const float v = xp[off[k]];
-        acc[0][k] = fmaf(a4.x, v, acc[0][k]);
-        acc[1][k] = fmaf(a4.y, v, acc[1][k]);
-        acc[2][k] = fmaf(a4.z, v, acc[2][k]);
-        acc[3][k] = fmaf(a4.w, v, acc[3][k]);
+        tacc[0][k] = fmaf(a0.x, v, tacc[0][k]);
+        tacc[1][k] = fmaf(a0.y, v, tacc[1][k]);
+        tacc[2][k] = fmaf(a0.z, v, tacc[2][k]);
+        tacc[3][k] = fmaf(a0.w, v, tacc[3][k]);
+        tacc[4][k] = fmaf(a1.x, v, tacc[4][k]);
+        tacc[5][k] = fmaf(a1.y, v, tacc[5][k]);
+        tacc[6][k] = fmaf(a1.z, v, tacc[6][k]);
+        tacc[7][k] = fmaf(a1.w, v, tacc[7][k]);
       }
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < DW_TB; ++k) {
+        sacc[(j * DW_TB + k) * NTHREADS + tid] += tacc[j][k];
+        tacc[j][k] = 0.f;
+      }
   }
-  float* out = partials + ((size_t)b * strips + blockIdx.x) * C_OUT * TAPS;
+  float* out =
+      partials + ((size_t)blockIdx.x * 2 + half) * C_OUT * TAPS;
 #pragma unroll
   for (int k = 0; k < DW_TB; ++k) {
-    const int t = DW_TB * tb + k;
+    const int t = DW_TB * tg + k;
     if (t >= TAPS) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[(4 * ob + j) * TAPS + t] = acc[j][k];
+    for (int j = 0; j < 8; ++j) {
+      const int o = (j < 4 ? 0 : 32) + 4 * cg + (j & 3);
+      out[o * TAPS + t] = sacc[(j * DW_TB + k) * NTHREADS + tid];
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 5. d_x by the transposed conv in gather form: d_x[c, y, x] = sum over o
-// and the taps (ky, kx) with y + 3 - ky and x + 3 - kx even of
-// d_a[o, (y + 3 - ky) / 2, (x + 3 - kx) / 2] w[o, c, ky, kx]. Tile: 16 x 64
-// input pixels; each CTA writes only its own pixels. Warp w takes one row
-// parity (w & 1) and one column parity ((w >> 1) & 1), so its taps are
-// warp-uniform and the weight loads broadcast; lane l takes column
-// 2 l + parity and four rows of that parity: 12 accumulators, and per tap
-// one float4 weight load (c = 0, 1, 2, 0) and 4 d_a loads feed 12 FMAs.
-// Each pixel's sum of 64 channels x 9 to 16 taps is summed in three levels
-// (a channel's taps, a pass's 16 channels, the 4 passes), whose float32
-// chains are at most 16 long: one chain of up to 1,024 terms put d_x
-// several times further from float64 than the plain version's cuDNN call.
-// Shared: the weights as [o][tap] float4 (50,176 B) and d_a for 16
-// channels at a time on the tile's support, 11 x 35, zero outside the
-// conv output (24,640 B).
+// 5. d_x, as the TPU kernel computes it: by space-to-depth, the input
+// gradient's 12 phase planes (3 channels x 2 x 2 parities) at Ho x Wo
+// positions are a dense 4 x 4 transposed conv of d_a with the weights
+// zero-padded from 7 x 7 to 8 x 8 (ky' = ky + 1 = 2 sy + py):
+//   d_x[c, 2u + py, 2v + px] = sum over o, sy, sx of
+//       w8[o, c, 2 sy + py, 2 sx + px] d_a[o, u - sy + 2, v - sx + 2].
+// Every output has the same 16 taps (147 of the 192 slots are real), so
+// the loops unroll with no parity branches.
+//
+// Tile: 32 x 32 positions (64 x 64 pixels); a CTA walks tiles (image-major)
+// with a stride of the grid, one CTA per SM. d_a is staged 8 channels at a
+// time on the tile's support, 35 rows of 40 columns (from v0 - 4, so that
+// the rows are 16-byte aligned; zero outside the conv output): act and d_n
+// by cp.async (16-byte copies where Wo is a multiple of 4) into a double
+// buffer, so that the next chunk's copies overlap this chunk's FMAs, and
+// d_a formed once per element in place, a float4 at a time. Thread: lane =
+// column v, warp w = rows 4 w .. 4 w + 3, all 12 phase outputs: 48
+// accumulators. Per channel and tap column sx, 7 d_a values in registers
+// feed the 4 taps sy of that column; per tap one broadcast of 12 weights
+// (3 float4) feeds 48 FMAs; so 28 scalar and 48 float4 loads feed 768
+// FMAs. Each pixel is summed in three levels whose float32 chains are at
+// most 16 long: a channel's 16 taps, a pass's 16 channels, the 4 passes.
+// Shared: the padded weights as [o][sy][sx][12] (49,152 B) and two chunks
+// of act and d_n (179,200 B).
 
-constexpr int DX_TH = 16, DX_TW = 64;
-constexpr int DX_OC = 16;               // channels of d_a per pass
-constexpr int DX_DR = DX_TH / 2 + 3;    // 11 rows of d_a
-constexpr int DX_DC = DX_TW / 2 + 3;    // 35 cols of d_a
-constexpr int DX_DP = DX_DR * DX_DC;    // 385
+constexpr int DX_TU = 32, DX_TV = 32;     // positions per tile
+constexpr int DX_DR = DX_TU + 3;          // 35 rows of d_a
+constexpr int DX_RC = DX_TV + 8;          // 40 columns, from v0 - 4
+constexpr int DX_PL = DX_DR * DX_RC;      // 1400 per channel
+constexpr int DX_CC = 8;                  // channels per chunk
+constexpr int DX_NC = C_OUT / DX_CC;      // 8 chunks per tile
+constexpr int DX_PASS = 16 / DX_CC;       // chunks per 16-channel pass
+constexpr int DX_RAW = 2 * DX_CC * DX_PL;  // act and d_n of one chunk
+constexpr int DX_WS = C_OUT * 16 * 12;    // padded weights
 constexpr size_t DX_SMEM =
-    (size_t)C_OUT * KK * sizeof(float4) +
-    (size_t)(DX_OC * DX_DP + 5 * C_OUT) * sizeof(float);
+    (size_t)(DX_WS + 2 * DX_RAW + 5 * C_OUT) * sizeof(float);
 
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 stem_conv_dx_kernel(const float* __restrict__ act,
                     const float* __restrict__ dn,
                     const float* __restrict__ coef,
                     const float* __restrict__ w, float* __restrict__ dx,
-                    int H, int W, int strips) {
+                    int B, int H, int W) {
   extern __shared__ __align__(16) float sm[];
-  float4* ws = reinterpret_cast<float4*>(sm);              // [C_OUT][KK]
-  float* das = sm + 4 * C_OUT * KK;                        // [DX_OC][DX_DP]
-  float* cf = das + DX_OC * DX_DP;                         // [5][C_OUT]
+  float* ws = sm;                          // [C_OUT][16][12]
+  float* raw = ws + DX_WS;                 // [2][act, d_n][DX_CC][DX_PL]
+  float* cf = raw + 2 * DX_RAW;            // [5][C_OUT]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rp = warp & 1, cp = (warp >> 1) & 1, rg = warp >> 2;
-  const int b = blockIdx.y;
   const int Ho = H / 2, Wo = W / 2;
-  const int nty = cdiv(H, DX_TH), ntx = cdiv(W, DX_TW);
-  const float* ab = act + (size_t)b * C_OUT * Ho * Wo;
-  const float* db = dn + (size_t)b * C_OUT * Ho * Wo;
+  const bool vec = (Wo & 3) == 0;  // act rows 16-byte aligned
+  const int ntx = cdiv(Wo, DX_TV), tiles = cdiv(Ho, DX_TU) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * DX_NC;
 
-  for (int i = tid; i < C_OUT * KK; i += NTHREADS) {
-    const int o = i / KK, k = i % KK;
-    const float* wo = w + (size_t)o * TAPS + k;
-    ws[i] = make_float4(wo[0], wo[KK], wo[2 * KK], 0.f);
+  for (int i = tid; i < DX_WS; i += NTHREADS) {
+    const int o = i / 192, s = (i / 12) % 16, k = i % 12;
+    const int c = k / 4, ky = 2 * (s / 4) + (k / 2) % 2 - 1,
+              kx = 2 * (s % 4) + k % 2 - 1;
+    ws[i] = (ky >= 0 && kx >= 0) ? w[o * TAPS + c * KK + ky * K + kx] : 0.f;
   }
   for (int i = tid; i < 5 * C_OUT; i += NTHREADS) cf[i] = coef[i];
 
-  for (int tile = blockIdx.x; tile < nty * ntx; tile += strips) {
-    const int y0 = (tile / ntx) * DX_TH, x0 = (tile % ntx) * DX_TW;
-    const int oy_org = y0 / 2 - 1, ox_org = x0 / 2 - 1;
-    float acc[4][3];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.f;
-    for (int o0 = 0; o0 < C_OUT; o0 += DX_OC) {
-      float pacc[4][3];  // this pass's channels
-#pragma unroll
-      for (int q = 0; q < 4; ++q) pacc[q][0] = pacc[q][1] = pacc[q][2] = 0.f;
-      __syncthreads();  // the previous pass's reads of das are done
-      for (int i = tid; i < DX_OC * DX_DP; i += NTHREADS) {
-        const int oc = i / DX_DP, rem = i % DX_DP, o = o0 + oc;
-        const int oy = oy_org + rem / DX_DC, ox = ox_org + rem % DX_DC;
-        float v = 0.f;
-        if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo) {
-          const size_t at = ((size_t)o * Ho + oy) * Wo + ox;
-          v = bn_input_cotangent(ab[at], db[at], cf[o], cf[C_OUT + o],
-                                 cf[2 * C_OUT + o], cf[3 * C_OUT + o],
-                                 cf[4 * C_OUT + o]);
-        }
-        das[i] = v;
+  // item i: channel chunk i % DX_NC of the CTA's tile i / DX_NC
+  auto origin = [&](int item, int& b, int& u0, int& v0) {
+    const int g = (int)blockIdx.x + (item / DX_NC) * (int)gridDim.x;
+    b = g / tiles;
+    const int tile = g % tiles;
+    u0 = (tile / ntx) * DX_TU;
+    v0 = (tile % ntx) * DX_TV;
+  };
+  auto issue = [&](int item) {
+    int b, u0, v0;
+    origin(item, b, u0, v0);
+    const size_t plane0 = (size_t)b * C_OUT + (item % DX_NC) * DX_CC;
+    float* rd = raw + (item & 1) * DX_RAW;
+    // rows (tensor, channel, lr) of the support
+    if (vec) {
+      for (int e = tid; e < DX_RAW / 4; e += NTHREADS) {
+        const int f = e % (DX_RC / 4), row = e / (DX_RC / 4);
+        const int lr = row % DX_DR, tc = row / DX_DR;  // tensor * 8 + chan
+        const int oy = u0 - 1 + lr, ox = v0 - 4 + 4 * f;
+        const float* src = (tc < DX_CC ? act : dn) +
+                           (plane0 + tc % DX_CC) * Ho * Wo;
+        const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+        cp_async_f32x4(rd + 4 * e, in ? src + (size_t)oy * Wo + ox : src,
+                       in);
       }
-      __syncthreads();
-      for (int oc = 0; oc < DX_OC; ++oc) {
-        const float4* wo = ws + (o0 + oc) * KK;
-        float cacc[4][3];  // one channel's taps
+    } else {
+      for (int e = tid; e < DX_RAW; e += NTHREADS) {
+        const int col = e % DX_RC, row = e / DX_RC;
+        const int lr = row % DX_DR, tc = row / DX_DR;
+        const int oy = u0 - 1 + lr, ox = v0 - 4 + col;
+        const float* src = (tc < DX_CC ? act : dn) +
+                           (plane0 + tc % DX_CC) * Ho * Wo;
+        const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+        cp_async_f32(rd + e, in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    }
+  };
+
+  float acc[4][12], pacc[4][12];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) cacc[q][0] = cacc[q][1] = cacc[q][2] = 0.f;
-        for (int ky = 1 - rp; ky < K; ky += 2) {
-          // local d_a row of pixel q: (rp + 3 - ky) / 2 + 4 rg + q + 1
-          const float* drow =
-              das + oc * DX_DP + ((rp + 3 - ky) / 2 + 4 * rg + 1) * DX_DC;
-          for (int kx = 1 - cp; kx < K; kx += 2) {
-            const float4 wv = wo[ky * K + kx];
-            const float* d = drow + lane + (cp + 3 - kx) / 2 + 1;
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float v = d[q * DX_DC];
-              cacc[q][0] = fmaf(v, wv.x, cacc[q][0]);
-              cacc[q][1] = fmaf(v, wv.y, cacc[q][1]);
-              cacc[q][2] = fmaf(v, wv.z, cacc[q][2]);
-            }
+    for (int k = 0; k < 12; ++k) acc[q][k] = pacc[q][k] = 0.f;
+
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+  for (int item = 0; item < n_items; ++item) {
+    cp_async_wait_all();
+    __syncthreads();  // this chunk's copies landed; the last chunk's reads done
+    if (item + 1 < n_items) issue(item + 1);
+    cp_async_commit();
+
+    int b, u0, v0;
+    origin(item, b, u0, v0);
+    const int chunk = item % DX_NC, o0 = chunk * DX_CC;
+    float* da = raw + (item & 1) * DX_RAW;
+#pragma unroll
+    for (int i = 0; i < cdiv(DX_CC * DX_PL / 4, NTHREADS); ++i) {
+      const int e = tid + i * NTHREADS;
+      if (e >= DX_CC * DX_PL / 4) break;
+      const int f = e % (DX_RC / 4), row = e / (DX_RC / 4);
+      const int lr = row % DX_DR, o = o0 + row / DX_DR;
+      const int oy = u0 - 1 + lr, ox = v0 - 4 + 4 * f;
+      float4* pa = reinterpret_cast<float4*>(da) + e;
+      const float4 a4 = *pa;
+      const float4 n4 = reinterpret_cast<const float4*>(da + DX_CC * DX_PL)[e];
+      const float g1 = cf[o], c1 = cf[C_OUT + o], c2 = cf[2 * C_OUT + o],
+                  mu = cf[3 * C_OUT + o], inv = cf[4 * C_OUT + o];
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float nv[4] = {n4.x, n4.y, n4.z, n4.w};
+      const bool row_in = oy >= 0 && oy < Ho;
+      float dv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dv[j] = row_in && ox + j >= 0 && ox + j < Wo
+                    ? bn_input_cotangent(av[j], nv[j], g1, c1, c2, mu, inv)
+                    : 0.f;
+      *pa = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+    __syncthreads();
+
+    for (int oc = 0; oc < DX_CC; ++oc) {
+      // local column of d_a for position v, tap sx: lane + 6 - sx
+      const float* dch = da + oc * DX_PL + 4 * warp * DX_RC + lane + 6;
+      const float4* wch =
+          reinterpret_cast<const float4*>(ws) + (o0 + oc) * 48;
+      float cacc[4][12];  // one channel's taps
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < 12; ++k) cacc[q][k] = 0.f;
+#pragma unroll
+      for (int sx = 0; sx < 4; ++sx) {
+        float d[7];
+#pragma unroll
+        for (int r = 0; r < 7; ++r) d[r] = dch[r * DX_RC - sx];
+#pragma unroll
+        for (int sy = 0; sy < 4; ++sy) {
+          const float4 w0 = wch[(sy * 4 + sx) * 3 + 0];
+          const float4 w1 = wch[(sy * 4 + sx) * 3 + 1];
+          const float4 w2 = wch[(sy * 4 + sx) * 3 + 2];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float v = d[q - sy + 3];
+            cacc[q][0] = fmaf(v, w0.x, cacc[q][0]);
+            cacc[q][1] = fmaf(v, w0.y, cacc[q][1]);
+            cacc[q][2] = fmaf(v, w0.z, cacc[q][2]);
+            cacc[q][3] = fmaf(v, w0.w, cacc[q][3]);
+            cacc[q][4] = fmaf(v, w1.x, cacc[q][4]);
+            cacc[q][5] = fmaf(v, w1.y, cacc[q][5]);
+            cacc[q][6] = fmaf(v, w1.z, cacc[q][6]);
+            cacc[q][7] = fmaf(v, w1.w, cacc[q][7]);
+            cacc[q][8] = fmaf(v, w2.x, cacc[q][8]);
+            cacc[q][9] = fmaf(v, w2.y, cacc[q][9]);
+            cacc[q][10] = fmaf(v, w2.z, cacc[q][10]);
+            cacc[q][11] = fmaf(v, w2.w, cacc[q][11]);
           }
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int c = 0; c < C_IN; ++c) pacc[q][c] += cacc[q][c];
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int c = 0; c < C_IN; ++c) acc[q][c] += pacc[q][c];
+        for (int k = 0; k < 12; ++k) pacc[q][k] += cacc[q][k];
     }
-    const int xx = x0 + 2 * lane + cp;
+    if (chunk % DX_PASS == DX_PASS - 1) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int y = y0 + rp + 2 * (4 * rg + q);
-      if (y >= H || xx >= W) continue;
+      for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int c = 0; c < C_IN; ++c)
-        dx[(((size_t)b * C_IN + c) * H + y) * W + xx] = acc[q][c];
+        for (int k = 0; k < 12; ++k) {
+          acc[q][k] += pacc[q][k];
+          pacc[q][k] = 0.f;
+        }
+    }
+    if (chunk == DX_NC - 1) {
+      const int v = v0 + lane;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int u = u0 + 4 * warp + q;
+        if (u < Ho && v < Wo) {
+#pragma unroll
+          for (int c = 0; c < C_IN; ++c)
+#pragma unroll
+            for (int py = 0; py < 2; ++py)
+              *reinterpret_cast<float2*>(
+                  dx + (((size_t)b * C_IN + c) * H + 2 * u + py) * W +
+                  2 * v) = make_float2(acc[q][4 * c + 2 * py],
+                                       acc[q][4 * c + 2 * py + 1]);
+        }
+#pragma unroll
+        for (int k = 0; k < 12; ++k) acc[q][k] = 0.f;
+      }
     }
   }
 }
@@ -555,9 +805,11 @@ extern "C" {
 
 // Each launches on `stream` and returns the CUDA error of the launch (0
 // when it was accepted). `strips` is the number of CTAs per image of the
-// strip-walking kernels (grid (strips, B)), at most r2l_stem_tiles of that
-// kernel; the partials' layouts are given with each function. `coef` rows:
-// see the kernels above.
+// conv forward (grid (strips, B)), at most r2l_stem_tiles of that kernel;
+// `ctas` is the grid of dW and d_x, which walk all B x tiles tiles with a
+// stride of the grid, at most B r2l_stem_tiles of the kernel. The
+// partials' layouts are given with each function. `coef` rows: see the
+// kernels above.
 
 // Tiles per image of a kernel on an input of H x W (the tile shapes live
 // only in this file): kernel 0 conv forward, 1 pool backward, 2 dW, 3 d_x;
@@ -568,7 +820,7 @@ int r2l_stem_tiles(int kernel, int H, int W) {
     case 0: return cdiv(Ho, CF_TH) * cdiv(Wo, CF_TW);
     case 1: return cdiv(Ho / 2, PB_TH) * cdiv(Wo / 2, PB_TW);
     case 2: return cdiv(Ho, DW_TH) * cdiv(Wo, DW_TW);
-    case 3: return cdiv(H, DX_TH) * cdiv(W, DX_TW);
+    case 3: return cdiv(Ho, DX_TU) * cdiv(Wo, DX_TV);
   }
   return -1;
 }
@@ -608,26 +860,24 @@ int r2l_stem_pool_bwd(const float* act, const float* dp, const float* coef,
   return (int)cudaGetLastError();
 }
 
-// partials: [B * strips][64][147] (dW in OIHW order per CTA).
+// partials: [ctas * 2][64][147] (dW in OIHW order per CTA and half).
 int r2l_stem_conv_dw(const float* x, const float* act, const float* dn,
                      const float* coef, float* partials, int B, int H, int W,
-                     int strips, void* stream) {
+                     int ctas, void* stream) {
   int err = set_smem(stem_conv_dw_kernel, DW_SMEM);
   if (err != 0) return err;
-  stem_conv_dw_kernel<<<dim3(strips, B), NTHREADS, DW_SMEM,
-                        (cudaStream_t)stream>>>(x, act, dn, coef, partials,
-                                                H, W, strips);
+  stem_conv_dw_kernel<<<ctas, NTHREADS, DW_SMEM, (cudaStream_t)stream>>>(
+      x, act, dn, coef, partials, B, H, W);
   return (int)cudaGetLastError();
 }
 
 int r2l_stem_conv_dx(const float* act, const float* dn, const float* coef,
                      const float* w, float* dx, int B, int H, int W,
-                     int strips, void* stream) {
+                     int ctas, void* stream) {
   int err = set_smem(stem_conv_dx_kernel, DX_SMEM);
   if (err != 0) return err;
-  stem_conv_dx_kernel<<<dim3(strips, B), NTHREADS, DX_SMEM,
-                        (cudaStream_t)stream>>>(act, dn, coef, w, dx, H, W,
-                                                strips);
+  stem_conv_dx_kernel<<<ctas, NTHREADS, DX_SMEM, (cudaStream_t)stream>>>(
+      act, dn, coef, w, dx, B, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -229,6 +229,14 @@ def _strips(lib, kernel, device, shape, per_sm):
                       per_sm * _sm_count(device.index or 0) // b))
 
 
+def _ctas(lib, kernel, device, shape):
+    """Grid of a kernel that walks all B x tiles tiles of input ``shape``
+    with a stride of the grid: one CTA per SM, at most one per tile."""
+    b, _, h, w = shape
+    return min(b * lib.r2l_stem_tiles(kernel, h, w),
+               _sm_count(device.index or 0))
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 
@@ -335,14 +343,14 @@ def stem_conv_dw(x, act, d_n, coef):
         return stem_conv_dw_reference(x, act, d_n, coef)
     b, _, h, wd = x.shape
     lib = _library()
-    # 8 CTAs per SM: each thread's float32 sums cover fewer positions
-    strips = _strips(lib, _CONV_DW, x.device, x.shape, 8)
-    partials = torch.empty((b * strips, C_OUT * TAPS), dtype=torch.float32,
+    ctas = _ctas(lib, _CONV_DW, x.device, x.shape)
+    # one row of partials per CTA and half of it
+    partials = torch.empty((2 * ctas, C_OUT * TAPS), dtype=torch.float32,
                            device=x.device)
     cf = _coef(coef)
     rc = lib.r2l_stem_conv_dw(x.data_ptr(), act.data_ptr(), d_n.data_ptr(),
                               cf.data_ptr(), partials.data_ptr(), b, h, wd,
-                              strips, _stream(x))
+                              ctas, _stream(x))
     _raise_on(lib, rc, "stem_conv_dw")
     stem_conv_dw.launches += 1
     return (partials.double().sum(0).float()
@@ -365,11 +373,11 @@ def stem_conv_dx(act, d_n, coef, w):
         return stem_conv_dx_reference(act, d_n, coef, w)
     d_x = torch.empty(x_shape, dtype=torch.float32, device=act.device)
     lib = _library()
-    strips = _strips(lib, _CONV_DX, act.device, x_shape, 2)
     cf = _coef(coef)
     rc = lib.r2l_stem_conv_dx(act.data_ptr(), d_n.data_ptr(), cf.data_ptr(),
                               w.data_ptr(), d_x.data_ptr(), b, 2 * ho,
-                              2 * wo, strips, _stream(act))
+                              2 * wo, _ctas(lib, _CONV_DX, act.device,
+                                            x_shape), _stream(act))
     _raise_on(lib, rc, "stem_conv_dx")
     stem_conv_dx.launches += 1
     return d_x

@@ -2,7 +2,8 @@
 backward variants, ``FusedISP`` around them, the SSIM aux kernel with
 ``SSIMAux``, and the five stem kernels with ``StemTrain`` and the
 ``stem_kernel`` ResNet) against their plain PyTorch versions, on the card,
-and the plain versions' full float32 under TF32 settings. Imports no JAX,
+the plain versions' full float32 under TF32 settings, and the ISP's output
+batch norm against nn.BatchNorm2d. Imports no JAX,
 so that it runs where the port runs:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -16,13 +17,15 @@ import torch
 
 from chip_smoke import (BWD_F64_PARAM, RES_TOL, SSIM_GRAD_REL, SSIM_SHAPES,
                         SSIM_VALUE_REL, SSIM_WEIGHTS, STEM_GRAD_TOL,
-                        VARIANT_TOL, bn_cotangent, bn_like_pair,
-                        bwd_agreement, kernel_tolerance, l2_rel, max_rel,
-                        processor, smooth_mosaics, ssim_agreement,
-                        stem_agreement, stem_input, stem_params, witness)
+                        VARIANT_TOL, bn_agreement, bn_cotangent,
+                        bn_like_pair, bwd_agreement, grad_agreement,
+                        kernel_tolerance, l2_rel, max_rel, processor,
+                        smooth_mosaics, ssim_agreement, stem_agreement,
+                        stem_input, stem_params, witness)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
-    SSIMAux, fused_isp, fused_isp_bwd, fused_isp_bwd_reference,
+    SSIMAux, batch_stats, bn_backward_coef, bn_fold, fused_isp,
+    fused_isp_bwd, fused_isp_bwd_reference,
     fused_isp_reference, fused_isp_train, fused_isp_train_reference,
     ssim_aux_reference, ssim_aux_value_grad, stem_bnpool, stem_conv,
     stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
@@ -433,3 +436,84 @@ def test_stem_plain_versions_stay_float32_under_tf32(cuda_tf32):
                                     w.double()))):
         assert max_rel(got.double(), want) <= 1e-5
     assert torch.backends.cudnn.allow_tf32
+
+
+# the redesigned dW and d_x: full size, and shapes that cut their tiles
+# (16 x 32 and 32 x 32 positions) raggedly, 72x40 with H / 2 = 36 a
+# multiple of neither tile height
+STEM_BWD_SHAPES = [(256, 3, 256, 256), (3, 3, 68, 44), (1, 3, 4, 8),
+                   (2, 3, 72, 40)]
+
+
+def stem_bwd_inputs(cuda, shape, inputs):
+    """x, w and the cotangent coefficients of dW and d_x: the stem's
+    forward and pool backward kernels on ``stem_input``."""
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, shape, inputs)
+    with torch.no_grad():
+        act, s1, s2 = stem_conv(x, w)
+        n = act.numel() // 64
+        mean, var = batch_stats(s1, s2, n)
+        inv, alpha, shift = bn_fold(gamma, beta, mean, var)
+        gen = torch.Generator(cuda).manual_seed(0)
+        dp = torch.randn((shape[0], 64, shape[2] // 4, shape[3] // 4),
+                         device=cuda, generator=gen)
+        d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+    return x, w, act, d_n, bn_backward_coef(gamma, mean, inv, sd, sdx, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["isp", "random"])
+@pytest.mark.parametrize("shape", STEM_BWD_SHAPES, ids=str)
+def test_stem_backward_matches_plain(shape, inputs, cuda):
+    """dW and d_x against their float32 plain versions (STEM_GRAD_TOL of
+    scale) and no further from the float64 plain versions than
+    STEM_F64_FACTOR times the float32 plain versions are
+    (chip_smoke.grad_agreement), each launch counted once."""
+    x, w, act, d_n, coef = stem_bwd_inputs(cuda, shape, inputs)
+    coef64 = tuple(c.double() for c in coef)
+    wit_in = act.double(), d_n.double()
+    launches = stem_conv_dw.launches, stem_conv_dx.launches
+    with torch.no_grad():
+        dw = stem_conv_dw(x, act, d_n, coef), stem_conv_dw(x, act, d_n, coef)
+        dx = (stem_conv_dx(act, d_n, coef, w),
+              stem_conv_dx(act, d_n, coef, w))
+        assert (stem_conv_dw.launches, stem_conv_dx.launches) == (
+            launches[0] + 2, launches[1] + 2)
+        for run, plain, wit in (
+                (dw, stem_conv_dw_reference(x, act, d_n, coef),
+                 stem_conv_dw_reference(x.double(), *wit_in, coef64)),
+                (dx, stem_conv_dx_reference(act, d_n, coef, w),
+                 stem_conv_dx_reference(*wit_in, coef64, w.double()))):
+            stats, ok = grad_agreement(*run, plain, wit)
+            assert ok, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STEM_BWD_SHAPES, ids=str)
+def test_stem_backward_repeats_bitwise(shape, cuda):
+    """Three launches each of dW and d_x on the same inputs are bitwise
+    equal: no atomics, and every sum in a fixed order."""
+    x, w, act, d_n, coef = stem_bwd_inputs(cuda, shape, "random")
+    with torch.no_grad():
+        dws = [stem_conv_dw(x, act, d_n, coef) for _ in range(3)]
+        dxs = [stem_conv_dx(act, d_n, coef, w) for _ in range(3)]
+    for runs in (dws, dxs):
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+        assert bool(torch.isfinite(runs[0]).all())
+
+
+@pytest.mark.gpu
+def test_output_bn_matches_batchnorm2d_on_the_card(cuda):
+    """The ISP's output batch norm on the fused ISP's output at B = 256,
+    256x256, against nn.BatchNorm2d(3, affine=False) in float64: output,
+    running statistics, tracked batches and input gradient
+    (chip_smoke.bn_agreement, the BN_* limits)."""
+    params = processor(cuda, use_kernel=True).kernel_params()
+    gen = torch.Generator(cuda).manual_seed(0)
+    raw = torch.rand((256, 256, 256), device=cuda, generator=gen)
+    with torch.no_grad():
+        x = fused_isp(raw, params)
+    dy = torch.randn(x.shape, device=cuda, generator=gen)
+    stats, ok = bn_agreement(x, dy)
+    assert ok, stats
