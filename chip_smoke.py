@@ -11,7 +11,8 @@ line):
    and matmul, so that every comparison below is full f32.
 2. build: compile the CUDA sources (``fused_isp_fwd.cu``,
    ``fused_isp_bwd.cu``, ``ssim_aux.cu``, ``stem.cu``) with nvcc, in
-   parallel.
+   parallel; print nvcc's register and spill report and each kernel's
+   registers, CTAs per SM and shared bytes (``r2l_kernel_info``).
 3. kernel vs plain: the serving kernel against its plain PyTorch
    version, at the serving shape (B=32, 256x256: edge and corner tiles
    included) and at shapes that are not multiples of the tile, with
@@ -41,7 +42,8 @@ line):
    parameter moves. Then the recompute backward as its users call it,
    ``fused_isp_bwd`` without residuals, on that batch and cotangent.
 7. ssim kernel vs plain: the SSIM aux kernel against its plain version
-   (autograd of ``ops/ssim.py``) at B=32 and three smaller shapes, two
+   (autograd of ``ops/ssim.py``) at B=32 and five smaller shapes that cut
+   its strips raggedly (``SSIM_SHAPES``), two
    weights, on the batch-normalised outputs of the default and a
    perturbed microscopy ISP and on random images with flat patches: the
    value within ``SSIM_VALUE_REL`` of the float64 plain version, the
@@ -61,8 +63,10 @@ line):
    with a frozen ISP and weak augmentation, then an SSIM-regularised
    attack on gamma through the classifier file it wrote.
 10. stem kernels vs plain: the five stem kernels (``kernels/stem.py``)
-   against their plain versions at B=256 and B=32, 256x256 and at three
-   small shapes with ragged tiles, on the batch-normalised outputs of the
+   against their plain versions at B=256 and B=32, 256x256 and at four
+   small shapes with ragged tiles (``STEM_SHAPES``; the conv forward
+   also without statistics, as serving runs it, bitwise the same act),
+   on the batch-normalised outputs of the
    microscopy ISP and on random inputs whose conv output is quantised to
    multiples of 1/8 (planted ties in the pool), each kernel on the same
    inputs as its plain version (the pool backward on the kernel's own
@@ -89,7 +93,8 @@ line):
 15. profile: device time by kernel and the device's idle share of
    ``Predictor.__call__`` and of a train step (each with the fused stem
    and without), of an adversarial step and of the recompute backward
-   (torch.profiler), at B=32 and B=256.
+   (torch.profiler), at B=32 and B=256; at B=256 beside the device ms of
+   the redesigned kernels as first ported (``FIRST_PORT_DEVICE_MS``).
 16. the ``kernels`` line, then the ``ok`` line.
 """
 
@@ -116,7 +121,7 @@ from raw2logit_tpu_torch.kernels import (
     stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
     stem_conv_dx_reference, stem_conv_reference, stem_pool_bwd,
     stem_pool_bwd_reference, stem_reference, unpack_grads, window_taps)
-from raw2logit_tpu_torch.kernels.build import build
+from raw2logit_tpu_torch.kernels.build import build, kernel_info
 from raw2logit_tpu_torch.ops.filters import full_float32
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.serving import Predictor
@@ -256,8 +261,12 @@ KERNELS = {
 # further from the float64 plain version than SSIM_F64_FACTOR times the
 # float32 plain version is.
 SSIM_VALUE_REL, SSIM_GRAD_REL, SSIM_F64_FACTOR = 1e-6, 1e-5, 2.0
+# B = 32 at 256x256, then shapes that cut the kernel's strips (at most
+# 108 columns, all strips of a plane alike) raggedly: 250, 200 and 173
+# wide (strips of 84, 100 and 87 columns), 67x45, and 5x7 and 7x200,
+# lower than the 12 rows by which d/dy trails the input
 SSIM_SHAPES = ((SERVE_BATCH, 3, SIZE, SIZE), (4, 3, 250, 250), (3, 3, 67, 45),
-               (2, 3, 5, 7))
+               (2, 3, 5, 7), (2, 3, 7, 200), (3, 3, 33, 173))
 SSIM_WEIGHTS = (0.3, -1.0)
 # The adversarial family of bench.py:88-99 (frozen ResNet-18, SSIM aux
 # weight 0.3, lr 1e-3); the attacked ISP starts from the reference ISP
@@ -275,13 +284,19 @@ STEM_ACT_TOL, STEM_SUM_TOL, STEM_GRAD_TOL = 1e-5, 1e-5, 2e-4
 STEM_F64_FACTOR = 2.0
 # B = 256 and B = 32 at 256x256, then shapes that cut the tiles of every
 # stem kernel raggedly: 68x44, 72x40 (H / 2 = 36 is a multiple of neither
-# dW's 16-row nor d_x's 32-row tile) and 4x8
+# dW's 16-row nor d_x's 32-row tile), 4x8, and 100x140 (50 x 70 positions:
+# three 16-row tiles of the conv forward and two rows more, two 32-column
+# tiles and six columns more)
 STEM_SHAPES = ((BIG_BATCH, 3, SIZE, SIZE), (SERVE_BATCH, 3, SIZE, SIZE),
-               (3, 3, 68, 44), (2, 3, 72, 40), (1, 3, 4, 8))
-# Device ms of dW and d_x in the B = 256 train step with the fused stem
-# before their redesign for Hopper (PERF.md's kernel table, this script
-# on an H100 80GB HBM3 at 700 W)
-STEM_FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020}
+               (3, 3, 68, 44), (2, 3, 72, 40), (1, 3, 4, 8),
+               (2, 3, 100, 140))
+# Device ms at B = 256 of the kernels redesigned for Hopper, as first
+# ported (PERF.md's kernel table, this script on an H100 80GB HBM3 at
+# 700 W): dW and d_x in the train step with the fused stem, the conv
+# forward there and in serving with it, the SSIM aux kernel in the
+# adversarial step
+FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
+                        "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121}
 # The ISP's output batch norm (isp/batchnorm.py) on the card, on the fused
 # ISP's output at the train step's shapes, against nn.BatchNorm2d computed
 # in float64 (the float32 nn.BatchNorm2d is not the yardstick: at B = 256
@@ -504,11 +519,17 @@ def phase_device():
     return smi, kind
 
 
+SOURCES = ("fused_isp_fwd", "fused_isp_bwd", "ssim_aux", "stem")
+
+
 def phase_build():
+    """Compile the four sources in parallel; print nvcc's register and
+    spill report and each kernel's registers and CTAs per SM."""
     t0 = time.perf_counter()
-    report = build(["fused_isp_fwd", "fused_isp_bwd", "ssim_aux", "stem"])
+    report = build(list(SOURCES))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": report})
+          "compiled": report,
+          "occupancy": [k for name in SOURCES for k in kernel_info(name)]})
 
 
 def kernel_tolerance(plain, gamma):
@@ -1271,6 +1292,7 @@ def stem_agreement(x, w, gamma, beta, ties, seed=SEED):
     out = {}
     act, s1, s2 = stem_conv(x, w)
     act2, s1b, s2b = stem_conv(x, w)
+    act_eval, _, _ = stem_conv(x, w, stats=False)
     ra, r1, r2 = stem_conv_reference(x, w)
     stats = {"max_abs_err": float((act - ra).abs().max()),
              "act_max_rel_err": max_rel(act, ra),
@@ -1278,12 +1300,14 @@ def stem_agreement(x, w, gamma, beta, ties, seed=SEED):
              "sumsq_err": sums_err(s2, r2, ra * ra),
              "bitwise_repeat": bool(torch.equal(act, act2)
                                     and torch.equal(s1, s1b)
-                                    and torch.equal(s2, s2b))}
+                                    and torch.equal(s2, s2b)),
+             # the eval-mode route (no statistics) computes the same act
+             "no_stats_bitwise_equal": bool(torch.equal(act_eval, act))}
     out["stem_conv_fwd"] = stats, (
         stats["act_max_rel_err"] <= STEM_ACT_TOL
         and max(stats["sum_err"], stats["sumsq_err"]) <= STEM_SUM_TOL
-        and stats["bitwise_repeat"])
-    del act2, ra
+        and stats["bitwise_repeat"] and stats["no_stats_bitwise_equal"])
+    del act2, act_eval, ra
     n = act.numel() // 64
     mean, var = batch_stats(s1, s2, n)
     inv, alpha, shift = bn_fold(gamma, beta, mean, var)
@@ -1773,8 +1797,9 @@ def phase_profile(device, pred, trains, advs, pred_stem, trains_stem,
                   "kernel_ms_sum": sum(k[0] for k in kernels),
                   "device_idle_share": 1 - busy / wall_ms,
                   "port_kernels_device_ms": ours,
-                  **({"stem_first_port_device_ms": STEM_FIRST_PORT_DEVICE_MS}
-                     if what == "train_stem" and b == BIG_BATCH else {}),
+                  **({"first_port_device_ms": {
+                      name: ms for name, ms in FIRST_PORT_DEVICE_MS.items()
+                      if name in ours}} if b == BIG_BATCH else {}),
                   "top_kernels_ms": [[k[1][:70], k[0], k[2]]
                                      for k in kernels[:15]]})
             want = {"serve": ("fused_isp_fwd",),

@@ -52,6 +52,7 @@
 // No fast math: expf/logf as in the forward.
 
 #include "fused_isp_common.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -490,6 +491,24 @@ int r2l_fused_isp_bwd(const float* raw, const float* g, const float* res,
                         stream);
   return launch<false>(raw, g, nullptr, params, d_raw, partials, B, H, W,
                        stream);
+}
+
+// Kernel `which` of this file (0 residual, 1 recompute): its name,
+// registers per thread, CTAs per SM and shared bytes per CTA
+// (kernel_info.cuh); null past the last or on an error.
+const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
+                            int* smem) {
+  switch (which) {
+    case 0: return r2l_occupancy((const void*)fused_isp_bwd_kernel<true>,
+                                 "fused_isp_bwd_kernel<true>", NTHREADS,
+                                 Layout<true>::BYTES, regs, ctas_per_sm,
+                                 smem);
+    case 1: return r2l_occupancy((const void*)fused_isp_bwd_kernel<false>,
+                                 "fused_isp_bwd_kernel<false>", NTHREADS,
+                                 Layout<false>::BYTES, regs, ctas_per_sm,
+                                 smem);
+  }
+  return nullptr;
 }
 
 const char* r2l_cuda_error_string(int code) {

@@ -35,6 +35,7 @@
 // No fast math: expf/logf, and 1/gamma kept as a multiply as on the TPU.
 
 #include "fused_isp_common.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -148,6 +149,22 @@ int r2l_fused_isp_fwd_train(const float* raw, const float* params,
                             float* out, float* res, int B, int H, int W,
                             void* stream) {
   return launch<true>(raw, params, out, res, B, H, W, stream);
+}
+
+// Kernel `which` of this file (0 serving, 1 training): its name,
+// registers per thread, CTAs per SM and shared bytes per CTA
+// (kernel_info.cuh); null past the last or on an error.
+const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
+                            int* smem) {
+  switch (which) {
+    case 0: return r2l_occupancy((const void*)fused_isp_fwd_kernel<false>,
+                                 "fused_isp_fwd_kernel<false>", NTHREADS, 0,
+                                 regs, ctas_per_sm, smem);
+    case 1: return r2l_occupancy((const void*)fused_isp_fwd_kernel<true>,
+                                 "fused_isp_fwd_kernel<true>", NTHREADS, 0,
+                                 regs, ctas_per_sm, smem);
+  }
+  return nullptr;
 }
 
 const char* r2l_cuda_error_string(int code) {

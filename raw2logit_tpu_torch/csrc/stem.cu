@@ -32,11 +32,13 @@
 // weights are read from L2 a few hundred times, not once per tile. No
 // tensor cores (TF32 would break the float32 contract), no TMA.
 //
-// dW and d_x were redesigned for Hopper: one CTA per SM walking all tiles
-// of the batch with a stride of the grid; act and d_n staged by cp.async
-// into double buffers, so that the next stage's copies overlap this
-// stage's FMAs; d_a formed once per staged element; register tiles that
-// cut shared loads per FMA to 12/80 (dW) and 76/768 (d_x, the
+// The conv forward, dW and d_x were redesigned for Hopper: one CTA per SM
+// walking all tiles of the batch with a stride of the grid; their inputs
+// staged by cp.async into double buffers, so that the next stage's copies
+// overlap this stage's FMAs (the forward's input split into even- and
+// odd-column phase planes on the way); d_a formed once per staged
+// element; register tiles that cut shared loads per FMA to 49/896 (the
+// forward), 12/80 (dW) and 76/768 (d_x, the
 // space-to-depth form of the TPU kernel, whose 16 taps per output pad 147
 // real taps to 192: its FFMA floor is 1.54 ms at B = 256, against the
 // 1.18 ms of the real taps).
@@ -49,6 +51,8 @@
 // the same values as in the plain version. No fast math.
 
 #include <cuda_runtime.h>
+
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -116,120 +120,171 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ---------------------------------------------------------------------------
 // 1. Conv forward and the statistics' partials.
 //
-// Tile: 8 x 32 output pixels. Thread tid: channel half h = tid / 128
-// (channels 32h .. 32h + 31, warp-uniform, so the weight loads broadcast),
-// output column tid % 32, rows r and r + 4 with r = (tid % 128) / 32: two
-// pixels x 32 channels = 64 accumulators; per tap 2 input loads and 8
-// float4 weight loads feed 64 FMAs. Shared memory: the weights as
-// [tap][64] (37,632 B), the input tile with its halo, 3 x 21 x 69, zero
-// outside the image (17,388 B), and per-warp statistics in float64
-// (4,096 B): each tile's sums are float32 warp sums of 64 values, and
-// their sum over the strip's tiles stays in float64.
+// Tile: 16 x 32 output positions; a CTA walks tiles (image-major) with a
+// stride of the grid, one CTA per SM. The tile's input with its halo, 3 x
+// 37 x 69 (zero outside the image), is staged by cp.async into a double
+// buffer, so that the next tile's copies overlap this tile's FMAs, and is
+// split on the way into even- and odd-column phase planes ([even 35 | odd
+// 34] per row): the stride-2 tap kx of output column v reads phase kx % 2
+// at column v + kx / 2, so a warp's 32 lanes read 32 consecutive words. The
+// copies are 4-byte (the split needs a destination per element); the
+// input is 3/64 of act, so they cost about 40 instructions per thread per
+// tile against 18,816 FMAs. Thread: lane = output column, warp w = channels
+// 16 (w % 4) .. + 15 (warp-uniform: the weight loads broadcast) x output
+// rows 8 (w / 4) .. + 7: 128 accumulators. Per (channel, kx) a column of
+// 21 input values is loaded into registers and feeds the 7 taps ky; per
+// tap 4 float4 weight loads feed 128 FMAs: 49 shared loads per 896 FMAs.
+// Statistics: each thread sums its 8 rows per channel in float32 and adds
+// the sums into its own float64 slots in shared memory once per tile; the
+// CTA reduces the slots once, in a fixed order, into partials[cta].
+// Shared memory: the weights as [tap][64] (37,632 B), two input tiles
+// (61,272 B) and the float64 slots (65,536 B).
 
-constexpr int CF_TH = 8, CF_TW = 32;
-constexpr int CF_IR = 2 * CF_TH + 5;   // 21 input rows
+constexpr int CF_RPT = 8;              // output rows per thread
+constexpr int CF_CPT = 16;             // channels per thread
+constexpr int CF_CG = C_OUT / CF_CPT;  // channel groups (warps)
+constexpr int CF_RG = NTHREADS / 32 / CF_CG;  // row groups (warps)
+constexpr int CF_TH = CF_RG * CF_RPT, CF_TW = 32;  // positions per tile
+constexpr int CF_IR = 2 * CF_TH + 5;   // 37 input rows
 constexpr int CF_IC = 2 * CF_TW + 5;   // 69 input cols
+constexpr int CF_EV = (CF_IC + 1) / 2;  // 35 even cols, then 34 odd ones
 constexpr int CF_XS = C_IN * CF_IR * CF_IC;
-constexpr int CF_ST = (NTHREADS / 32) * 2 * 32;
+constexpr int CF_NV = 2 * CF_CPT;      // float64 slots per thread
 constexpr size_t CF_SMEM =
-    (size_t)CF_ST * sizeof(double) + (size_t)(TAPS * C_OUT + CF_XS) *
-    sizeof(float);
+    (size_t)CF_NV * NTHREADS * sizeof(double) +
+    (size_t)(TAPS * C_OUT + 2 * CF_XS) * sizeof(float);
 
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ act, double* __restrict__ partials,
-                     int H, int W, int strips) {
+                     int B, int H, int W) {
   extern __shared__ __align__(16) double smd[];
-  double* st = smd;                    // [warp][sum, sumsq][32]
-  float* ws = reinterpret_cast<float*>(st + CF_ST);  // [TAPS][C_OUT]
-  float* xs = ws + TAPS * C_OUT;       // [C_IN][CF_IR][CF_IC]
+  double* st = smd;                    // [CF_NV][NTHREADS]
+  float* ws = reinterpret_cast<float*>(st + CF_NV * NTHREADS);  // [TAPS][64]
+  float* xs = ws + TAPS * C_OUT;       // [2][C_IN][CF_IR][CF_IC]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chalf = tid >> 7, r = (tid & 127) >> 5, col = lane;
-  const int b = blockIdx.y;
+  const int cg = warp % CF_CG, rg = warp / CF_CG;
   const int Ho = H / 2, Wo = W / 2;
-  const int nty = cdiv(Ho, CF_TH), ntx = cdiv(Wo, CF_TW);
-  const float* xb = x + (size_t)b * C_IN * H * W;
+  const int ntx = cdiv(Wo, CF_TW), tiles = cdiv(Ho, CF_TH) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const bool stats = partials != nullptr;
 
   for (int i = tid; i < TAPS * C_OUT; i += NTHREADS) {
     const int t = i / C_OUT, o = i % C_OUT;
     ws[i] = w[o * TAPS + t];
   }
-  for (int i = tid; i < CF_ST; i += NTHREADS) st[i] = 0.0;
+  if (stats)
+    for (int i = 0; i < CF_NV; ++i) st[i * NTHREADS + tid] = 0.0;
 
-  for (int tile = blockIdx.x; tile < nty * ntx; tile += strips) {
-    const int oy0 = (tile / ntx) * CF_TH, ox0 = (tile % ntx) * CF_TW;
+  auto origin = [&](int item, int& b, int& oy0, int& ox0) {
+    const int g = (int)blockIdx.x + item * (int)gridDim.x;
+    b = g / tiles;
+    const int tile = g % tiles;
+    oy0 = (tile / ntx) * CF_TH;
+    ox0 = (tile % ntx) * CF_TW;
+  };
+  auto fetch = [&](int item) {
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
     const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;
-    __syncthreads();  // the previous tile's reads of xs are done
-    for (int i = tid; i < CF_XS; i += NTHREADS) {
-      const int c = i / (CF_IR * CF_IC), rem = i % (CF_IR * CF_IC);
-      const int yy = iy0 + rem / CF_IC, xx = ix0 + rem % CF_IC;
-      xs[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? xb[((size_t)c * H + yy) * W + xx] : 0.f;
+    float* xd = xs + (item & 1) * CF_XS;
+    const float* xb = x + (size_t)b * C_IN * H * W;
+    for (int row = warp; row < C_IN * CF_IR; row += NTHREADS / 32) {
+      const int c = row / CF_IR, yy = iy0 + row - c * CF_IR;
+      const bool row_in = yy >= 0 && yy < H;
+      const float* src = xb + ((size_t)c * H + (row_in ? yy : 0)) * W;
+      float* dst = xd + row * CF_IC;
+      for (int col = lane; col < CF_IC; col += 32) {
+        const int xx = ix0 + col;
+        const bool in = row_in && xx >= 0 && xx < W;
+        cp_async_f32(dst + (col & 1) * CF_EV + (col >> 1), in ? src + xx : src,
+                     in);
+      }
     }
-    __syncthreads();
+  };
 
-    float acc0[32], acc1[32];
+  if (n_items > 0) fetch(0);
+  cp_async_commit();
+  for (int item = 0; item < n_items; ++item) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile's copies landed; the last tile's reads done
+    if (item + 1 < n_items) fetch(item + 1);
+    cp_async_commit();
+
+    float acc[CF_RPT][CF_CPT];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc0[j] = acc1[j] = 0.f;
-    for (int c = 0; c < C_IN; ++c) {
+    for (int i = 0; i < CF_RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CF_CPT; ++j) acc[i][j] = 0.f;
+    // input row 2 (8 rg + i) + ky of output row 8 rg + i
+    const float* xt =
+        xs + (item & 1) * CF_XS + 2 * CF_RPT * rg * CF_IC + lane;
+#pragma unroll 1
+    for (int ckx = 0; ckx < C_IN * K; ++ckx) {
+      const int c = ckx / K, kx = ckx - c * K;
+      const float* col =
+          xt + c * CF_IR * CF_IC + (kx & 1) * CF_EV + (kx >> 1);
+      float v[2 * CF_RPT + K - 2];
+#pragma unroll
+      for (int r = 0; r < 2 * CF_RPT + K - 2; ++r) v[r] = col[r * CF_IC];
+      const float4* wk = reinterpret_cast<const float4*>(
+          ws + (c * KK + kx) * C_OUT + CF_CPT * cg);
+#pragma unroll
       for (int ky = 0; ky < K; ++ky) {
-        const float* x0 = xs + (c * CF_IR + 2 * r + ky) * CF_IC + 2 * col;
-        const float* x1 = x0 + 8 * CF_IC;  // row r + 4: input rows + 8
-        const float4* wrow = reinterpret_cast<const float4*>(
-            ws + (c * KK + ky * K) * C_OUT + 32 * chalf);
+        const float4* wp = wk + ky * K * (C_OUT / 4);
+        float4 w4[CF_CPT / 4];
 #pragma unroll
-        for (int kx = 0; kx < K; ++kx) {
-          const float v0 = x0[kx], v1 = x1[kx];
-          const float4* wp = wrow + kx * (C_OUT / 4);
+        for (int q = 0; q < CF_CPT / 4; ++q) w4[q] = wp[q];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 wv = wp[j];
-            acc0[4 * j + 0] = fmaf(v0, wv.x, acc0[4 * j + 0]);
-            acc0[4 * j + 1] = fmaf(v0, wv.y, acc0[4 * j + 1]);
-            acc0[4 * j + 2] = fmaf(v0, wv.z, acc0[4 * j + 2]);
-            acc0[4 * j + 3] = fmaf(v0, wv.w, acc0[4 * j + 3]);
-            acc1[4 * j + 0] = fmaf(v1, wv.x, acc1[4 * j + 0]);
-            acc1[4 * j + 1] = fmaf(v1, wv.y, acc1[4 * j + 1]);
-            acc1[4 * j + 2] = fmaf(v1, wv.z, acc1[4 * j + 2]);
-            acc1[4 * j + 3] = fmaf(v1, wv.w, acc1[4 * j + 3]);
+        for (int i = 0; i < CF_RPT; ++i) {
+          const float xv = v[2 * i + ky];
+#pragma unroll
+          for (int q = 0; q < CF_CPT / 4; ++q) {
+            acc[i][4 * q + 0] = fmaf(xv, w4[q].x, acc[i][4 * q + 0]);
+            acc[i][4 * q + 1] = fmaf(xv, w4[q].y, acc[i][4 * q + 1]);
+            acc[i][4 * q + 2] = fmaf(xv, w4[q].z, acc[i][4 * q + 2]);
+            acc[i][4 * q + 3] = fmaf(xv, w4[q].w, acc[i][4 * q + 3]);
           }
         }
       }
     }
 
-    const int oy_a = oy0 + r, oy_b = oy0 + r + 4, ox = ox0 + col;
-    const bool in_a = oy_a < Ho && ox < Wo, in_b = oy_b < Ho && ox < Wo;
-    float* ab = act + ((size_t)b * C_OUT + 32 * chalf) * Ho * Wo;
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    const int ox = ox0 + lane, oyr = oy0 + CF_RPT * rg;
+    const bool col_in = ox < Wo;
+    float* ab = act + ((size_t)b * C_OUT + CF_CPT * cg) * Ho * Wo;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < CF_CPT; ++j) {
       float* plane = ab + (size_t)j * Ho * Wo;
-      if (in_a) plane[(size_t)oy_a * Wo + ox] = acc0[j];
-      if (in_b) plane[(size_t)oy_b * Wo + ox] = acc1[j];
-    }
-    if (partials != nullptr) {
-      // Each warp adds its tile's sums into its own slots, in tile order.
+      float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float a0 = in_a ? acc0[j] : 0.f, a1 = in_b ? acc1[j] : 0.f;
-        const float s1 = warp_sum(a0 + a1);
-        const float s2 = warp_sum(a0 * a0 + a1 * a1);
-        if (lane == 0) {
-          st[(warp * 2 + 0) * 32 + j] += s1;
-          st[(warp * 2 + 1) * 32 + j] += s2;
-        }
+      for (int i = 0; i < CF_RPT; ++i) {
+        if (!col_in || oyr + i >= Ho) continue;
+        plane[(size_t)(oyr + i) * Wo + ox] = acc[i][j];
+        s1 += acc[i][j];
+        s2 += acc[i][j] * acc[i][j];
+      }
+      if (stats) {
+        st[(2 * j) * NTHREADS + tid] += (double)s1;
+        st[(2 * j + 1) * NTHREADS + tid] += (double)s2;
       }
     }
   }
-  if (partials == nullptr) return;
+  if (!stats) return;
   __syncthreads();
   if (tid < 2 * C_OUT) {
-    // partials[cta][k][o]: the four warps of channel o's half, in order
-    const int k = tid / C_OUT, o = tid % C_OUT, h = o / 32;
+    // partials[cta][k][o]: channel o's 64 threads (row group, lane), in order
+    const int k = tid / C_OUT, o = tid % C_OUT;
+    const int g = o / CF_CPT, j = o % CF_CPT;
+    const double* sv = st + (2 * j + k) * NTHREADS;
     double s = 0.0;
-    for (int q = 0; q < 4; ++q) s += st[((4 * h + q) * 2 + k) * 32 + o % 32];
-    partials[((size_t)b * strips + blockIdx.x) * 2 * C_OUT + k * C_OUT + o] =
-        s;
+    for (int r = 0; r < CF_RG; ++r)
+      for (int l = 0; l < 32; ++l) s += sv[(r * CF_CG + g) * 32 + l];
+    partials[(size_t)blockIdx.x * 2 * C_OUT + k * C_OUT + o] = s;
   }
 }
 
@@ -804,12 +859,10 @@ int set_smem(F* kernel, size_t bytes) {
 extern "C" {
 
 // Each launches on `stream` and returns the CUDA error of the launch (0
-// when it was accepted). `strips` is the number of CTAs per image of the
-// conv forward (grid (strips, B)), at most r2l_stem_tiles of that kernel;
-// `ctas` is the grid of dW and d_x, which walk all B x tiles tiles with a
-// stride of the grid, at most B r2l_stem_tiles of the kernel. The
-// partials' layouts are given with each function. `coef` rows: see the
-// kernels above.
+// when it was accepted). `ctas` is the grid of the conv forward, dW and
+// d_x, which walk all B x tiles tiles with a stride of the grid
+// (r2l_stem_ctas). The partials' layouts are given with each function.
+// `coef` rows: see the kernels above.
 
 // Tiles per image of a kernel on an input of H x W (the tile shapes live
 // only in this file): kernel 0 conv forward, 1 pool backward, 2 dW, 3 d_x;
@@ -825,16 +878,25 @@ int r2l_stem_tiles(int kernel, int H, int W) {
   return -1;
 }
 
-// partials: [B * strips][2][64] float64 (sum, sum of squares), or null to
-// skip the statistics (eval mode).
+// Grid of a kernel that walks all B x tiles tiles with a stride of the
+// grid (0 conv forward, 2 dW, 3 d_x) on a card with `sms` SMs: one CTA
+// per SM, at most one per tile; -1 for another kernel. A function of the
+// shape and the card only, so repeated launches are bitwise equal.
+int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
+  if (kernel != 0 && kernel != 2 && kernel != 3) return -1;
+  const int n = B * r2l_stem_tiles(kernel, H, W);
+  return n < sms ? n : sms;
+}
+
+// partials: [ctas][2][64] float64 (sum, sum of squares), or null to skip
+// the statistics (eval mode).
 int r2l_stem_conv_fwd(const float* x, const float* w, float* act,
-                      double* partials, int B, int H, int W, int strips,
+                      double* partials, int B, int H, int W, int ctas,
                       void* stream) {
   int err = set_smem(stem_conv_fwd_kernel, CF_SMEM);
   if (err != 0) return err;
-  stem_conv_fwd_kernel<<<dim3(strips, B), NTHREADS, CF_SMEM,
-                         (cudaStream_t)stream>>>(x, w, act, partials, H, W,
-                                                 strips);
+  stem_conv_fwd_kernel<<<ctas, NTHREADS, CF_SMEM, (cudaStream_t)stream>>>(
+      x, w, act, partials, B, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -879,6 +941,32 @@ int r2l_stem_conv_dx(const float* act, const float* dn, const float* coef,
   stem_conv_dx_kernel<<<ctas, NTHREADS, DX_SMEM, (cudaStream_t)stream>>>(
       act, dn, coef, w, dx, B, H, W);
   return (int)cudaGetLastError();
+}
+
+// Kernel `which` of this file (0 conv forward, 1 BN-pool, 2 pool
+// backward, 3 dW, 4 d_x): its name, registers per thread, CTAs per SM
+// and shared bytes per CTA (kernel_info.cuh); null past the last or on an
+// error.
+const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
+                            int* smem) {
+  switch (which) {
+    case 0: return r2l_occupancy((const void*)stem_conv_fwd_kernel,
+                                 "stem_conv_fwd_kernel", NTHREADS, CF_SMEM,
+                                 regs, ctas_per_sm, smem);
+    case 1: return r2l_occupancy((const void*)stem_bnpool_kernel,
+                                 "stem_bnpool_kernel", NTHREADS, 0, regs,
+                                 ctas_per_sm, smem);
+    case 2: return r2l_occupancy((const void*)stem_pool_bwd_kernel,
+                                 "stem_pool_bwd_kernel", NTHREADS, 0, regs,
+                                 ctas_per_sm, smem);
+    case 3: return r2l_occupancy((const void*)stem_conv_dw_kernel,
+                                 "stem_conv_dw_kernel", NTHREADS, DW_SMEM,
+                                 regs, ctas_per_sm, smem);
+    case 4: return r2l_occupancy((const void*)stem_conv_dx_kernel,
+                                 "stem_conv_dx_kernel", NTHREADS, DX_SMEM,
+                                 regs, ctas_per_sm, smem);
+  }
+  return nullptr;
 }
 
 const char* r2l_cuda_error_string(int code) {

@@ -72,6 +72,26 @@ def build(names):
     return report
 
 
+def kernel_info(name):
+    """[{"kernel", "registers", "ctas_per_sm", "smem_bytes"}] of each
+    kernel of ``csrc/<name>.cu`` on the current card (its
+    ``r2l_kernel_info``: the CUDA occupancy calculator at the launch's
+    threads and shared memory)."""
+    lib = load(name)
+    fn = lib.r2l_kernel_info
+    i32p = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int, i32p, i32p, i32p]
+    fn.restype = ctypes.c_char_p
+    out = []
+    while True:
+        regs, ctas, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        kname = fn(len(out), regs, ctas, smem)
+        if kname is None:
+            return out
+        out.append({"kernel": kname.decode(), "registers": regs.value,
+                    "ctas_per_sm": ctas.value, "smem_bytes": smem.value})
+
+
 @functools.cache
 def load(name):
     """The ``ctypes`` handle of ``csrc/<name>.cu``, built on first use."""

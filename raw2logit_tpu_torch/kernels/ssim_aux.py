@@ -17,8 +17,6 @@ from torch.autograd.function import once_differentiable
 from raw2logit_tpu_torch.kernels.build import load
 from raw2logit_tpu_torch.ops.ssim import gauss_np, ssim
 
-TILE = 32
-
 
 def ssim_aux_reference(ref, x, weight, dtype=torch.float32):
     """Plain version: (weight * SSIM(ref, x), its gradient in x) by
@@ -49,7 +47,7 @@ def _check(ref, x):
         if not t.is_contiguous():
             raise ValueError(f"ssim_aux needs a contiguous {name}")
     if x.shape[0] * 3 > 65535:
-        raise ValueError(f"ssim_aux launches one grid z-slice per plane; "
+        raise ValueError(f"ssim_aux launches one grid row per plane; "
                          f"B={x.shape[0]} exceeds 21845")
 
 
@@ -75,10 +73,10 @@ def ssim_aux_value_grad(ref, x, weight):
     if n == 0:
         raise ValueError("ssim_aux of an empty batch has no mean")
     d_x = torch.empty_like(x)
-    partials = torch.empty(b * 3 * -(-h // TILE) * -(-w // TILE),
-                           dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _library()
+    partials = torch.empty(lib.r2l_ssim_aux_partials(b, h, w),
+                           dtype=torch.float64, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.r2l_ssim_aux(ref.data_ptr(), x.data_ptr(),
                           _taps(x.device).data_ptr(), weight / n,
                           d_x.data_ptr(), partials.data_ptr(), b, h, w,
@@ -87,7 +85,7 @@ def ssim_aux_value_grad(ref, x, weight):
         raise RuntimeError("ssim_aux launch failed: "
                            + lib.r2l_cuda_error_string(rc).decode())
     ssim_aux_value_grad.launches += 1
-    value = (partials.double().sum() * (weight / n)).float()
+    value = (partials.sum() * (weight / n)).float()
     return value, d_x
 
 
@@ -128,6 +126,8 @@ def _library():
     lib.r2l_ssim_aux.argtypes = [ptr, ptr, ptr, ctypes.c_float, ptr, ptr,
                                  i32, i32, i32, ptr]
     lib.r2l_ssim_aux.restype = i32
+    lib.r2l_ssim_aux_partials.argtypes = [i32, i32, i32]
+    lib.r2l_ssim_aux_partials.restype = i32
     lib.r2l_cuda_error_string.argtypes = [i32]
     lib.r2l_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -219,22 +219,14 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _strips(lib, kernel, device, shape, per_sm):
-    """CTAs per image of a strip-walking kernel on input ``shape`` (B, 3,
-    H, W): about ``per_sm`` CTAs per SM over the batch, at most one per
-    tile (the tile count comes from the source). A function of the shape
-    and the card only, so repeated launches are bitwise equal."""
-    b, _, h, w = shape
-    return max(1, min(lib.r2l_stem_tiles(kernel, h, w),
-                      per_sm * _sm_count(device.index or 0) // b))
-
-
 def _ctas(lib, kernel, device, shape):
     """Grid of a kernel that walks all B x tiles tiles of input ``shape``
-    with a stride of the grid: one CTA per SM, at most one per tile."""
+    (B, 3, H, W) with a stride of the grid (``r2l_stem_ctas``: one CTA
+    per SM, at most one per tile). A function of
+    the shape and the card only, so repeated launches are bitwise
+    equal."""
     b, _, h, w = shape
-    return min(b * lib.r2l_stem_tiles(kernel, h, w),
-               _sm_count(device.index or 0))
+    return lib.r2l_stem_ctas(kernel, b, h, w, _sm_count(device.index or 0))
 
 
 # --------------------------------------------------------------------------
@@ -252,12 +244,12 @@ def stem_conv(x, w, stats=True):
     act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=torch.float32,
                       device=x.device)
     lib = _library()
-    strips = _strips(lib, _CONV_FWD, x.device, x.shape, 2)
-    partials = (torch.empty((b * strips, 2, C_OUT), dtype=torch.float64,
+    ctas = _ctas(lib, _CONV_FWD, x.device, x.shape)
+    partials = (torch.empty((ctas, 2, C_OUT), dtype=torch.float64,
                             device=x.device) if stats else None)
     rc = lib.r2l_stem_conv_fwd(
         x.data_ptr(), w.data_ptr(), act.data_ptr(),
-        None if partials is None else partials.data_ptr(), b, h, wd, strips,
+        None if partials is None else partials.data_ptr(), b, h, wd, ctas,
         _stream(x))
     _raise_on(lib, rc, "stem_conv_fwd")
     stem_conv.launches += 1
@@ -500,9 +492,10 @@ def _library():
     lib.r2l_stem_conv_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                      i32, ptr]
     lib.r2l_stem_tiles.argtypes = [i32, i32, i32]
+    lib.r2l_stem_ctas.argtypes = [i32, i32, i32, i32, i32]
     for fn in (lib.r2l_stem_conv_fwd, lib.r2l_stem_bnpool,
                lib.r2l_stem_pool_bwd, lib.r2l_stem_conv_dw,
-               lib.r2l_stem_conv_dx, lib.r2l_stem_tiles):
+               lib.r2l_stem_conv_dx, lib.r2l_stem_tiles, lib.r2l_stem_ctas):
         fn.restype = i32
     lib.r2l_cuda_error_string.argtypes = [i32]
     lib.r2l_cuda_error_string.restype = ctypes.c_char_p

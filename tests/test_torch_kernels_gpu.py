@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import (BWD_F64_PARAM, RES_TOL, SSIM_GRAD_REL, SSIM_SHAPES,
-                        SSIM_VALUE_REL, SSIM_WEIGHTS, STEM_GRAD_TOL,
-                        VARIANT_TOL, bn_agreement, bn_cotangent,
+                        SSIM_VALUE_REL, SSIM_WEIGHTS, STEM_ACT_TOL,
+                        STEM_GRAD_TOL, VARIANT_TOL, bn_agreement, bn_cotangent,
                         bn_like_pair, bwd_agreement, grad_agreement,
                         kernel_tolerance, l2_rel, max_rel, processor,
                         smooth_mosaics, ssim_agreement, stem_agreement,
@@ -319,7 +319,7 @@ def test_plain_versions_stay_float32_under_tf32(cuda_tf32):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["isp", "random"])
 @pytest.mark.parametrize("shape", [(4, 3, 256, 256), (3, 3, 68, 44),
-                                   (1, 3, 4, 8)], ids=str)
+                                   (1, 3, 4, 8), (2, 3, 100, 140)], ids=str)
 def test_stem_kernels_match_plain(shape, inputs, cuda):
     """Each stem kernel against its plain version on the same inputs
     (chip_smoke.stem_agreement: the STEM_* limits, pooled and d_n bitwise,
@@ -330,6 +330,27 @@ def test_stem_kernels_match_plain(shape, inputs, cuda):
     for name, (stats, ok) in stem_agreement(x, w, gamma, beta,
                                             inputs == "random").items():
         assert ok, (name, stats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 3, 256, 256), (3, 3, 68, 44),
+                                   (1, 3, 4, 8), (2, 3, 100, 140)], ids=str)
+def test_stem_conv_serving_route_matches_plain(shape, cuda):
+    """``stem_conv(x, w, stats=False)``, the eval-mode stem's route (no
+    statistics): act within STEM_ACT_TOL of max |plain|, bitwise the
+    train-mode launch's act, one launch counted, no sums."""
+    w, _, _ = stem_params(cuda)
+    x = stem_input(cuda, shape, "isp")
+    launches = stem_conv.launches
+    act, s1, s2 = stem_conv(x, w, stats=False)
+    assert stem_conv.launches == launches + 1
+    assert s1 is None and s2 is None
+    want, _, _ = stem_conv_reference(x, w, stats=False)
+    train_act, _, _ = stem_conv(x, w)
+    torch.cuda.synchronize()
+    assert act.shape == want.shape
+    assert max_rel(act, want) <= STEM_ACT_TOL
+    assert torch.equal(act, train_act)
 
 
 @pytest.mark.gpu
@@ -440,9 +461,9 @@ def test_stem_plain_versions_stay_float32_under_tf32(cuda_tf32):
 
 # the redesigned dW and d_x: full size, and shapes that cut their tiles
 # (16 x 32 and 32 x 32 positions) raggedly, 72x40 with H / 2 = 36 a
-# multiple of neither tile height
+# multiple of neither tile height, 100x140 with 50 x 70 positions
 STEM_BWD_SHAPES = [(256, 3, 256, 256), (3, 3, 68, 44), (1, 3, 4, 8),
-                   (2, 3, 72, 40)]
+                   (2, 3, 72, 40), (2, 3, 100, 140)]
 
 
 def stem_bwd_inputs(cuda, shape, inputs):
