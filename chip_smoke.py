@@ -294,9 +294,11 @@ STEM_SHAPES = ((BIG_BATCH, 3, SIZE, SIZE), (SERVE_BATCH, 3, SIZE, SIZE),
 # ported (PERF.md's kernel table, this script on an H100 80GB HBM3 at
 # 700 W): dW and d_x in the train step with the fused stem, the conv
 # forward there and in serving with it, the SSIM aux kernel in the
-# adversarial step
+# adversarial step, the residual ISP backward in the train step and the
+# recompute ISP backward on its own
 FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
-                        "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121}
+                        "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121,
+                        "fused_isp_bwd_res": 2.1258, "fused_isp_bwd": 2.5632}
 # The ISP's output batch norm (isp/batchnorm.py) on the card, on the fused
 # ISP's output at the train step's shapes, against nn.BatchNorm2d computed
 # in float64 (the float32 nn.BatchNorm2d is not the yardstick: at B = 256

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,6 +92,13 @@ def kernel_info(name):
             return out
         out.append({"kernel": kname.decode(), "registers": regs.value,
                     "ctas_per_sm": ctas.value, "smem_bytes": smem.value})
+
+
+@functools.cache
+def sm_count(index):
+    """SMs of CUDA device ``index``: the grids of the kernels that walk
+    their tiles with a fixed number of CTAs are sized from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

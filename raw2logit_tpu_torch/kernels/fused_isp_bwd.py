@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from raw2logit_tpu_torch.kernels.build import load
+from raw2logit_tpu_torch.kernels.build import load, sm_count
 from raw2logit_tpu_torch.kernels.fused_isp import (
     P_A, P_BL, P_GAMMA, P_KBLUR, P_KDEB, P_KSHARP, P_MINV, _check,
     _colour_matrices, _packed_on, _raise_on, isp_from_packed, pack_params)
@@ -22,7 +22,6 @@ from raw2logit_tpu_torch.kernels.fused_isp import (
 # Layout of the 129 scalars (fused_isp_bwd.py:188-194).
 Q_DKBLUR, Q_DKSHARP, Q_DA, Q_DKDEB, Q_DBL, Q_DGAMMA = 0, 25, 34, 43, 124, 128
 N_PARTIALS = 129
-TILE = 32
 
 
 def fused_isp_bwd_reference(raw, params, g, dtype=torch.float32):
@@ -89,7 +88,10 @@ def fused_isp_bwd(raw, params, g, res=None):
     On a CUDA tensor it launches ``csrc/fused_isp_bwd.cu``: the residual
     variant when ``res`` (B, 5, H, W) from ``fused_isp_train`` is given
     (``fused_isp_bwd.launches_res``), else the variant that recomputes the
-    forward (``fused_isp_bwd.launches``), and sums the per-CTA partials.
+    forward (``fused_isp_bwd.launches``), and sums its per-CTA float64
+    partials here in float64, in a fixed order, rounding each sum to
+    float32 once (the grid, ``r2l_fused_isp_bwd_ctas``, is a function of
+    the shape and the card, so two launches are bitwise equal).
     On a CPU tensor it runs ``fused_isp_bwd_reference`` (``res`` is then
     only checked). Raises if a launch fails."""
     if raw.device.type == "cuda":
@@ -103,23 +105,24 @@ def fused_isp_bwd(raw, params, g, res=None):
         return d_raw, unpack_grads(scal, params)
     packed = _packed_on(raw, params)
     b, h, w = raw.shape
-    ctas = b * -(-h // TILE) * -(-w // TILE)
     d_raw = torch.empty_like(raw)
-    partials = torch.empty((ctas, N_PARTIALS), dtype=torch.float32,
+    lib = _library()
+    ctas = lib.r2l_fused_isp_bwd_ctas(b, h, w,
+                                      sm_count(raw.device.index or 0))
+    partials = torch.empty((ctas, N_PARTIALS), dtype=torch.float64,
                            device=raw.device)
-    if b:
+    if ctas:
         stream = torch.cuda.current_stream(raw.device).cuda_stream
-        lib = _library()
         _raise_on(lib, lib.r2l_fused_isp_bwd(
             raw.data_ptr(), g.data_ptr(),
             None if res is None else res.data_ptr(), packed.data_ptr(),
-            d_raw.data_ptr(), partials.data_ptr(), b, h, w, stream),
+            d_raw.data_ptr(), partials.data_ptr(), b, h, w, ctas, stream),
             "fused_isp_bwd")
         if res is None:
             fused_isp_bwd.launches += 1
         else:
             fused_isp_bwd.launches_res += 1
-    return d_raw, unpack_grads(partials.sum(0), params)
+    return d_raw, unpack_grads(partials.sum(0).float(), params)
 
 
 fused_isp_bwd.launches = 0
@@ -131,7 +134,9 @@ def _library():
     lib = load("fused_isp_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.r2l_fused_isp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                      i32, ptr]
+                                      i32, i32, ptr]
+    lib.r2l_fused_isp_bwd_ctas.argtypes = [i32, i32, i32, i32]
+    lib.r2l_fused_isp_bwd_ctas.restype = i32
     lib.r2l_fused_isp_bwd.restype = i32
     lib.r2l_cuda_error_string.argtypes = [i32]
     lib.r2l_cuda_error_string.restype = ctypes.c_char_p

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from raw2logit_tpu_torch.kernels.build import load
+from raw2logit_tpu_torch.kernels.build import load, sm_count
 from raw2logit_tpu_torch.ops.filters import conv2d_f32, full_float32
 
 C_OUT, C_IN, K = 64, 3, 7
@@ -214,11 +214,6 @@ def _raise_on(lib, rc, what):
                            + lib.r2l_cuda_error_string(rc).decode())
 
 
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _ctas(lib, kernel, device, shape):
     """Grid of a kernel that walks all B x tiles tiles of input ``shape``
     (B, 3, H, W) with a stride of the grid (``r2l_stem_ctas``: one CTA
@@ -226,7 +221,7 @@ def _ctas(lib, kernel, device, shape):
     the shape and the card only, so repeated launches are bitwise
     equal."""
     b, _, h, w = shape
-    return lib.r2l_stem_ctas(kernel, b, h, w, _sm_count(device.index or 0))
+    return lib.r2l_stem_ctas(kernel, b, h, w, sm_count(device.index or 0))
 
 
 # --------------------------------------------------------------------------

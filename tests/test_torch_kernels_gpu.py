@@ -129,17 +129,55 @@ def test_fused_isp_train_matches_plain(shape, cuda, rng):
     assert float((res - want_res).abs().max()) <= RES_TOL
 
 
+# Shapes that cut the backward's walk (csrc/fused_isp_bwd.cu: 32x32
+# tiles; r2l_fused_isp_bwd_ctas CTAs, 2 per SM, at most one per tile, 264
+# on an H100 SXM's 132 SMs; CTA k walks the run of tiles [k n / grid,
+# (k + 1) n / grid); the float32 sums flushed every 8 tiles of a walk):
+# 1x20x28, one ragged tile, fewer tiles than CTAs; 67x128x96, 804 tiles,
+# runs of 3 and of 4 (uneven); 2x40x36, 8 tiles, every one an edge tile;
+# 16x256x256, 1,024 tiles, runs of 3 and 4 that hold edge and interior
+# tiles; 40x256x256, 2,560 tiles, runs of 9 and 10, a flush inside every
+# walk. test_fused_isp_bwd_walk_shapes holds these counts on the card at
+# hand.
+WALK_SHAPES = ((1, 20, 28), (67, 128, 96), (2, 40, 36), (16, 256, 256),
+               (40, 256, 256))
+
+
+@pytest.mark.gpu
+def test_fused_isp_bwd_walk_shapes(cuda):
+    """WALK_SHAPES cut the grid that the backward launches on this card as
+    their comment says."""
+    from raw2logit_tpu_torch.kernels.build import sm_count
+    from raw2logit_tpu_torch.kernels.fused_isp_bwd import _library
+    sms = sm_count(cuda.index or 0)
+    walk = {}
+    for b, h, w in WALK_SHAPES:
+        tiles = b * -(-h // 32) * -(-w // 32)
+        walk[(b, h, w)] = (tiles,
+                           _library().r2l_fused_isp_bwd_ctas(b, h, w, sms))
+    tiles, ctas = walk[(1, 20, 28)]
+    assert tiles == ctas == 1 < 2 * sms
+    tiles, ctas = walk[(67, 128, 96)]
+    assert ctas == 2 * sms and tiles > 2 * ctas and tiles % ctas
+    tiles, ctas = walk[(16, 256, 256)]
+    assert ctas == 2 * sms and 2 < tiles / ctas < 8
+    tiles, ctas = walk[(40, 256, 256)]
+    assert ctas == 2 * sms and tiles > 8 * ctas
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cotangent", ["positive", "bn_backward"])
 @pytest.mark.parametrize("variant", ["res", "recompute"])
-@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45)])
+@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45),
+                                   *WALK_SHAPES])
 def test_fused_isp_bwd_matches_plain(shape, variant, cotangent, cuda):
     """Both backward variants against autograd of the plain version on a
     smoothed input, under a positive cotangent and under the mean-zero one
     of a training-mode batch norm: chip_smoke's statistical contract
     (tests/test_pallas.py:153-159) against the float32 plain version, and
     its tight limits (BWD_TIGHT_DRAW, BWD_F64_PARAM), with chip_smoke's
-    seeded ISP as in its train_kernels_vs_plain phase."""
+    seeded ISP as in its train_kernels_vs_plain phase; at the shapes that
+    cut the kernel's walk over tiles (WALK_SHAPES)."""
     params = processor(cuda, use_kernel=True, camera=MILD_CAM).kernel_params()
     raw = smooth_mosaics(shape).to(cuda)
     with torch.no_grad():
@@ -155,16 +193,32 @@ def test_fused_isp_bwd_matches_plain(shape, variant, cotangent, cuda):
     d_ref, scal = fused_isp_bwd_reference(raw, params, g)
     plain = d_ref, unpack_grads(scal, params)
     torch.cuda.synchronize()
-    stats, ok = bwd_agreement(run, plain, witness(raw, params, g), tight=True)
+    # One image gets only smooth_mosaics' darkest exposure (0.05), where
+    # many outputs sit near the clip floor, outside the premise of the
+    # tight limits (chip_smoke: few pixels near the floor): at 1x20x28
+    # under the batch-norm cotangent d_raw reads 1.15e-5 of its scale from
+    # the float32 plain version, for the first port as for this kernel
+    # (bitwise the same d_raw). There both are held to the float64 witness
+    # instead, no further from it than twice the float32 plain version is.
+    tight = shape[0] > 1
+    stats, ok = bwd_agreement(run, plain, witness(raw, params, g), tight)
     assert ok, stats
+    if not tight:
+        near, plain_near = stats["vs_float64"], stats["plain_vs_float64"]
+        assert (near["d_raw_max_abs_err_over_scale"]
+                <= 2 * plain_near["d_raw_max_abs_err_over_scale"]), stats
+        assert near["param_max_rel_err"] <= max(
+            BWD_F64_PARAM, 2 * plain_near["param_max_rel_err"]), stats
 
 
 @pytest.mark.gpu
-def test_fused_isp_bwd_variants_agree_and_repeat(cuda, rng):
+@pytest.mark.parametrize("shape", [(3, 130, 97), *WALK_SHAPES])
+def test_fused_isp_bwd_variants_agree_and_repeat(shape, cuda, rng):
     """Residual and recompute variants within chip_smoke.VARIANT_TOL (1e-6
-    abs); two launches of the residual variant bitwise identical."""
+    abs); two launches of the residual variant bitwise identical; at the
+    shapes that cut the kernel's walk over tiles (WALK_SHAPES)."""
     params = perturbed_params(cuda, rng)
-    raw = torch.as_tensor(rng.uniform(0, 1, (3, 130, 97)),
+    raw = torch.as_tensor(rng.uniform(0, 1, shape),
                           dtype=torch.float32, device=cuda)
     with torch.no_grad():
         out, res = fused_isp_train(raw, params)
