@@ -87,7 +87,8 @@ line):
    nn.BatchNorm2d's, and its reductions over (0, 2, 3) against two stages
    over a (B, C, H W) view.
 14. times: CUDA-event times of each kernel, its plain version, its bound
-   and, for the stem's convolutions, the nearest cuDNN call, of
+   and, for the stem's convolutions and pool backward, the nearest library
+   call (``LIBRARY_CALLS``), of
    ``Predictor.__call__``, of a train step (with the fused stem and
    without) and of an adversarial step, at B=32 and B=256.
 15. profile: device time by kernel and the device's idle share of
@@ -292,13 +293,16 @@ STEM_SHAPES = ((BIG_BATCH, 3, SIZE, SIZE), (SERVE_BATCH, 3, SIZE, SIZE),
                (2, 3, 100, 140))
 # Device ms at B = 256 of the kernels redesigned for Hopper, as first
 # ported (PERF.md's kernel table, this script on an H100 80GB HBM3 at
-# 700 W): dW and d_x in the train step with the fused stem, the conv
-# forward there and in serving with it, the SSIM aux kernel in the
-# adversarial step, the residual ISP backward in the train step and the
-# recompute ISP backward on its own
+# 700 W): dW, d_x and the pool backward in the train step with the fused
+# stem, the conv forward there and in serving with it, the SSIM aux kernel
+# in the adversarial step, the residual ISP backward in the train step,
+# the recompute ISP backward on its own, the serving ISP forward in
+# serving and the training ISP forward in the train step
 FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
                         "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121,
-                        "fused_isp_bwd_res": 2.1258, "fused_isp_bwd": 2.5632}
+                        "fused_isp_bwd_res": 2.1258, "fused_isp_bwd": 2.5632,
+                        "stem_pool_bwd": 2.3177, "fused_isp_fwd": 0.4550,
+                        "fused_isp_fwd_train": 0.5195}
 # The ISP's output batch norm (isp/batchnorm.py) on the card, on the fused
 # ISP's output at the train step's shapes, against nn.BatchNorm2d computed
 # in float64 (the float32 nn.BatchNorm2d is not the yardstick: at B = 256
@@ -334,6 +338,19 @@ def bound(kind, n_pixels, kernel="fused_isp_fwd"):
     t_ops = n_pixels * ops_pp / ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+
+# The PyTorch call timed beside a kernel as its nearest yardstick (times
+# phase); the port calls none of them.
+LIBRARY_CALLS = {
+    "stem_conv_fwd": "nearest cuDNN call (F.conv2d), without the BN "
+                     "statistics",
+    "stem_pool_bwd": "nearest call (aten.max_pool2d_with_indices_backward, "
+                     "indices computed outside the timed window), without "
+                     "the BN fold, the ReLU mask or the sums",
+    "stem_conv_dw": "nearest cuDNN call (aten.convolution_backward), "
+                    "without the BN fold",
+    "stem_conv_dx": "nearest cuDNN call (aten.convolution_backward), "
+                    "without the BN fold"}
 
 STEM_WRAPPERS = dict(zip(STEM_KERNELS, (stem_conv, stem_bnpool, stem_pool_bwd,
                                         stem_conv_dw, stem_conv_dx)))
@@ -1589,10 +1606,12 @@ def adv_runner(device, batch, use_kernel=True):
 
 
 def stem_timings(device, b):
-    """{kernel: (wrapper ms, plain ms, nearest cuDNN ms or None)} of the
+    """{kernel: (wrapper ms, plain ms, nearest library ms or None)} of the
     five stem kernels at B = ``b``, 256x256, by CUDA events. The nearest
-    cuDNN calls lack the statistics (F.conv2d) and the BN fold
-    (convolution_backward on a ready d_a); the port never calls them."""
+    library calls lack the statistics (F.conv2d), the BN fold
+    (convolution_backward on a ready d_a), or the BN fold, the ReLU mask
+    and the sums (max_pool2d_with_indices_backward, its indices computed
+    outside the timed window); the port never calls them."""
     x = stem_input(device, (b, 3, SIZE, SIZE), "random")
     w, gamma, beta = stem_params(device)
     with torch.no_grad():
@@ -1605,7 +1624,14 @@ def stem_timings(device, b):
         d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
         coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
         d_a = bn_input_cotangent(act, d_n, coef)
+        r = torch.relu(act * alpha[:, None, None] + shift[:, None, None])
+        _, pool_idx = torch.nn.functional.max_pool2d(
+            r, 3, 2, padding=1, return_indices=True)
     one = [None]
+
+    def pool_bwd_call(_):
+        return torch.ops.aten.max_pool2d_with_indices_backward(
+            dp, r, [3, 3], [2, 2], [1, 1], [1, 1], False, pool_idx)
 
     def cudnn_bwd(mask):
         return lambda _: torch.ops.aten.convolution_backward(
@@ -1626,7 +1652,8 @@ def stem_timings(device, b):
                 cuda_ms(lambda _: stem_pool_bwd(act, dp, alpha, shift, mean,
                                                 inv), one, 20),
                 cuda_ms(lambda _: stem_pool_bwd_reference(
-                    act, dp, alpha, shift, mean, inv), one, 5), None),
+                    act, dp, alpha, shift, mean, inv), one, 5),
+                cuda_ms(pool_bwd_call, one, 20)),
             "stem_conv_dw": (
                 cuda_ms(lambda _: stem_conv_dw(x, act, d_n, coef), one, 20),
                 cuda_ms(lambda _: stem_conv_dw_reference(x, act, d_n, coef),
@@ -1641,10 +1668,10 @@ def stem_timings(device, b):
 
 def phase_times(device, kind, pred, trains, advs, pred_stem, trains_stem):
     """CUDA-event ms of each kernel's wrapper and its plain version beside
-    the kernel's bound (and, for the stem's convolutions, the nearest
-    cuDNN call), of ``Predictor.__call__`` and of a train step (each with
-    the fused stem and without) and of an adversarial step (and of the
-    plain path's steps), at B = 32 and B = 256."""
+    the kernel's bound (and, for the stem's convolutions and pool backward,
+    the nearest library call), of ``Predictor.__call__`` and of a train
+    step (each with the fused stem and without) and of an adversarial step
+    (and of the plain path's steps), at B = 32 and B = 256."""
     params = processor(device, use_kernel=True).kernel_params()
     rows = {}
     for b in (SERVE_BATCH, BIG_BATCH):
@@ -1758,9 +1785,10 @@ def profile_calls(fn, arg, calls):
     return kernels, busy_ms(prof, calls), wall_ms
 
 
-# Profile keys of the kernels (template instances of the two sources).
-PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false>",
-                "fused_isp_fwd_train": "fused_isp_fwd_kernel<true>",
+# Profile keys of the kernels (template instances of the sources; the ISP
+# forward's second argument is its row alignment).
+PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
+                "fused_isp_fwd_train": "fused_isp_fwd_kernel<true,",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
                 "fused_isp_bwd": "fused_isp_bwd_kernel<false>",
                 "ssim_aux": "ssim_aux_kernel",
@@ -1979,8 +2007,7 @@ def main():
             "device_ms": device_ms[where, SERVE_BATCH].get(name),
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"library_call": "nearest cuDNN call, without the BN "
-                                "statistics or fold"}
+            **({"library_call": LIBRARY_CALLS[name]}
                if r["library_ms"] is not None else {}),
             "shape": shape, "card": smi})
     print(json.dumps({"kernels": entries}), flush=True)

@@ -3,8 +3,11 @@
 // Every sum is written as an explicit fmaf chain, so that the forward
 // kernels and the backward kernel's recompute of the forward produce
 // bitwise identical intermediates (deb, Y, s, t) whatever nvcc would
-// contract on its own. Planes live in shared memory as row-major regions
-// of a tile with a halo; a plane is addressed by its image position.
+// contract on its own. The forward writes the same chains, in the same
+// order, out per 2x2 quad of sites with its weights in the constant bank;
+// the backward calls the functions below. Planes live in shared memory as
+// row-major regions of a tile with a halo; a plane is addressed by its
+// image position.
 
 #pragma once
 

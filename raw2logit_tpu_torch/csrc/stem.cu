@@ -41,16 +41,21 @@
 // forward), 12/80 (dW) and 76/768 (d_x, the
 // space-to-depth form of the TPU kernel, whose 16 taps per output pad 147
 // real taps to 192: its FFMA floor is 1.54 ms at B = 256, against the
-// 1.18 ms of the real taps).
+// 1.18 ms of the real taps). The pool backward was redesigned too: warps
+// of a persistent grid walk down 128-column strips of the planes, each
+// lane prefetching into its own ring in shared memory (section 3).
 //
-// Cross-CTA reductions (the BN statistics, dW) are per-CTA partials in a
-// fixed order, summed by the wrapper in float64: no atomics, so two
-// launches are bitwise equal. Products that the plain version rounds
-// twice (act a + b, xhat, d_a) are rounded as written (__fmul_rn,
-// __fadd_rn), so that the ReLU mask and the pool's argmax are decided on
-// the same values as in the plain version. No fast math.
+// Cross-CTA reductions (the BN statistics, dW, the pool backward's sums)
+// are per-CTA or per-unit partials in a fixed order, summed by the wrapper
+// in float64: no atomics, so two launches are bitwise equal. Products that
+// the plain version rounds twice (act a + b, xhat, d_a) are rounded as
+// written (__fmul_rn, __fadd_rn), so that the ReLU mask and the pool's
+// argmax are decided on the same values as in the plain version. No fast
+// math.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "kernel_info.cuh"
 
@@ -324,96 +329,305 @@ stem_bnpool_kernel(const float* __restrict__ act,
 }
 
 // ---------------------------------------------------------------------------
-// 3. Pool, ReLU and BN backward. CTA: one (image, channel) plane, a tile of
-// 8 x 32 pooling windows, whose pre-pool rows and columns (16 x 64) it
-// owns. (a) r = relu(act alpha + beta) on the windows' support, 19 x 67,
-// -1 outside the image; (b) each of the 9 x 33 windows that touch the tile
-// takes its first maximum in tap order (dy, dx) row-major, as
-// _argmax_first, and its cotangent (0 for a window outside the image);
-// (c) each pre-pool position sums, in tap order, the cotangents of the
-// windows whose first maximum it is, keeps them where n > 0, writes d_n,
-// and adds d_n and d_n xhat to the CTA's partials (fixed order).
+// 3. Pool, ReLU and BN backward: d_n, the cotangent of n = act alpha +
+// beta (the pool backward in gather form, then the ReLU mask), and the
+// partial sums of d_n and d_n xhat.
+//
+// Bound on an H100 by bytes: it reads act (4 B) and the pooled cotangent
+// dp (1 B) and writes d_n (4 B) per act element, 2.42 GB at B = 256,
+// 256x256 (0.72 ms at 3.35 TB/s), with about 35 instructions per element.
+// The first port (a CTA per 8 x 32 windows of one plane, three barriers, a
+// 24% halo read as odd-aligned scalar loads, act read twice) moved about
+// 1.04 TB/s.
+//
+// Design: no barrier. A warp walks down a strip of 128 pre-pool columns of
+// one plane, four columns (two pooling windows) a lane, one window row (two
+// pre-pool rows) a step: a lane reads two float4 of act and a float2 of dp
+// and writes two float4 of d_n. Its reads go by cp.async into a ring of PB_S
+// steps in shared memory that only the lane itself reads, so that PB_S - 1
+// steps of loads are in flight without holding registers (a prefetch one
+// step ahead in registers spilled at 64 registers and read 1.66 ms at B =
+// 256; the ring reads 0.90 ms, about 2.7 TB/s, and deeper rings or two CTAs
+// per SM read no faster). act is read once; r = relu(act alpha + beta), the
+// mask and xhat come from that copy. Window j of row k covers rows
+// 2k-1..2k+1 and columns 2j-1..2j+1: its top row is the last step's bottom
+// row, the column left of a lane comes from its left neighbour by
+// __shfl_up_sync (-1 at the plane's edge, a load at a strip's edge), and the
+// first window of the lane to the right (its first maximum and cotangent) by
+// __shfl_down_sync (lane 31 computes it from loads where the next strip
+// holds it). Each window takes its first maximum in tap order (v > best), as
+// _argmax_first. A pre-pool position receives from at most four windows, and
+// the plain version sums them from 0 in tap order t = 0..8: an odd row 2k-1
+// takes window row k's taps (t = 0, 1, 2) before window row k-1's (t = 6, 7,
+// 8). So a step holds row k-1's six upper contributions and adds them after
+// row k's, each sum written out in that order with an absent contribution as
+// +0 (x + 0 = x): d_n is bitwise the plain version's.
+//
+// Work: units of PB_CH window rows of one strip of one plane, in
+// plane-major order; warp w of the persistent grid (n warps, r2l_stem_ctas)
+// takes the run of units [w U / n, (w + 1) U / n) and walks each plane's
+// part of it top-down, reading one halo row above and two below. Sums: a
+// lane's float32 sum over the four positions of a row, added in float64
+// over the unit's rows; the unit's warp sum (a fixed butterfly) is its
+// partial, so the sums do not depend on the grid. Rows whose width is not
+// a multiple of 4 (Wo % 4 == 2) or misaligned tensors take 4-byte copies
+// and scalar stores (kVec false).
 
-constexpr int PB_TH = 8, PB_TW = 32;          // windows per tile
-constexpr int PB_RR = 2 * PB_TH + 3;          // 19 rows of r
-constexpr int PB_RC = 2 * PB_TW + 3;          // 67 cols of r
-constexpr int PB_WR = PB_TH + 1, PB_WC = PB_TW + 1;  // 9 x 33 windows
+constexpr int PB_SW = 128;                // pre-pool columns per strip
+constexpr int PB_CH = 8;                  // window rows per unit
+constexpr int PB_S = 4;                   // steps in a lane's ring
+constexpr int PB_WARPS = NTHREADS / 32;
+constexpr int PB_CTAS = 3;                // CTAs per SM (80 registers)
+constexpr size_t PB_SMEM =
+    (size_t)PB_S * NTHREADS * (2 * sizeof(float4) + sizeof(float2));
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(NTHREADS)
+// One pre-pool row at a lane's four columns: act, and r = relu(act alpha +
+// beta), -1 outside the plane.
+struct PbRow {
+  float a[4], r[4];
+  float left;    // r of the column left of the lane's
+  float e0, e1;  // lane 31 before a next strip: r of its first two columns
+};
+
+// First maximum of a window's nine taps in tap order (_argmax_first).
+__device__ __forceinline__ int first_max(float v0, float v1, float v2,
+                                         float v3, float v4, float v5,
+                                         float v6, float v7, float v8) {
+  const float v[9] = {v0, v1, v2, v3, v4, v5, v6, v7, v8};
+  float best = v[0];
+  int id = 0;
+#pragma unroll
+  for (int t = 1; t < 9; ++t)
+    if (v[t] > best) {
+      best = v[t];
+      id = t;
+    }
+  return id;
+}
+
+__device__ __forceinline__ float sel(int id, int t, float d) {
+  return id == t ? d : 0.f;
+}
+
+// cp.async of 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async_f32x2(float* dst, const float* src,
+                                               bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(NTHREADS, PB_CTAS)
 stem_pool_bwd_kernel(const float* __restrict__ act,
                      const float* __restrict__ dp,
                      const float* __restrict__ coef, float* __restrict__ dn,
-                     float* __restrict__ partials, int Ho, int Wo) {
-  __shared__ float rs[PB_RR * PB_RC];
-  __shared__ float dps[PB_WR * PB_WC];
-  __shared__ int ids[PB_WR * PB_WC];
-  __shared__ float red[2][NTHREADS / 32];
+                     double* __restrict__ partials, int B, int Ho, int Wo) {
+  // each lane's ring: act rows 2k, 2k + 1 and dp row k of PB_S steps
+  extern __shared__ __align__(16) float4 pb_ring[];
+  float4 (*ring_a)[2][NTHREADS] =
+      reinterpret_cast<float4 (*)[2][NTHREADS]>(pb_ring);
+  float2 (*ring_d)[NTHREADS] = reinterpret_cast<float2 (*)[NTHREADS]>(
+      pb_ring + PB_S * 2 * NTHREADS);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int Hq = Ho / 2, Wq = Wo / 2;
-  const size_t plane = blockIdx.z;  // b * 64 + c
-  const int c = (int)(plane % C_OUT);
-  const float alpha = coef[c], beta = coef[C_OUT + c];
-  const float mu = coef[2 * C_OUT + c], inv = coef[3 * C_OUT + c];
-  const int i0 = blockIdx.y * PB_TH, j0 = blockIdx.x * PB_TW;
-  const int y0 = 2 * i0 - 1, x0 = 2 * j0 - 1;  // r's origin
-  const float* ap = act + plane * Ho * Wo;
-  const float* dpp = dp + plane * Hq * Wq;
+  const int nstrips = cdiv(Wo, PB_SW), nchunks = cdiv(Hq, PB_CH);
+  const long long units = (long long)B * C_OUT * nstrips * nchunks;
+  const long long nw = (long long)gridDim.x * PB_WARPS;
+  const long long w = (long long)blockIdx.x * PB_WARPS + (tid >> 5);
+  const long long u_end = (w + 1) * units / nw;
 
-  for (int k = tid; k < PB_RR * PB_RC; k += NTHREADS) {
-    const int y = y0 + k / PB_RC, xx = x0 + k % PB_RC;
-    rs[k] = (y >= 0 && y < Ho && xx >= 0 && xx < Wo)
-                ? fmaxf(bn_out(ap[(size_t)y * Wo + xx], alpha, beta), 0.f)
-                : -1.f;
-  }
-  __syncthreads();
-  for (int k = tid; k < PB_WR * PB_WC; k += NTHREADS) {
-    const int wi = k / PB_WC, wj = k % PB_WC;
-    float best = -2.f;
-    int id = 0;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const float v = rs[(2 * wi + t / 3) * PB_RC + 2 * wj + t % 3];
-      if (v > best) { best = v; id = t; }
-    }
-    const int i = i0 + wi, j = j0 + wj;
-    ids[k] = id;
-    dps[k] = (i < Hq && j < Wq) ? dpp[(size_t)i * Wq + j] : 0.f;
-  }
-  __syncthreads();
+  for (long long u = w * units / nw; u < u_end;) {
+    // A segment: the run's units in one strip of one plane.
+    const long long ps = u / nchunks;  // plane * nstrips + strip
+    const long long seg_end = min(u_end, (ps + 1) * nchunks);
+    const int k_first = (int)(u - ps * nchunks) * PB_CH;
+    const int k_last = min(Hq, (int)(seg_end - ps * nchunks) * PB_CH);
+    const long long plane = ps / nstrips;
+    const int strip = (int)(ps - plane * nstrips);
+    const int c = (int)(plane % C_OUT);
+    const float alpha = coef[c], beta = coef[C_OUT + c];
+    const float mu = coef[2 * C_OUT + c], inv = coef[3 * C_OUT + c];
+    const float* ap = act + (size_t)plane * Ho * Wo;
+    const float* dpp = dp + (size_t)plane * Hq * Wq;
+    float* dnp = dn + (size_t)plane * Ho * Wo;
+    const int x0 = strip * PB_SW + 4 * lane;  // the lane's first column
+    const int j0 = x0 / 2;                    // its windows j0, j0 + 1
+    const bool far_left = lane == 0 && strip > 0;
+    const bool far_right = lane == 31 && j0 + 2 < Wq;
+    u = seg_end;
 
-  float s1 = 0.f, s2 = 0.f;
-  for (int k = tid; k < 2 * PB_TH * 2 * PB_TW; k += NTHREADS) {
-    const int py = k / (2 * PB_TW), px = k % (2 * PB_TW);
-    const int y = 2 * i0 + py, xx = 2 * j0 + px;
-    if (y >= Ho || xx >= Wo) continue;
-    float d = 0.f;
+    // Step k's copies into ring slot k % PB_S (window row k: act rows 2k,
+    // 2k + 1 and dp row k); one commit group a call, empty past the
+    // segment's last step.
+    auto fetch = [&](int k) {
+      if (k <= k_last && k < Hq) {
+        const int s = k % PB_S;
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int wy2 = py + 1 - t / 3, wx2 = px + 1 - t % 3;
-      if ((wy2 & 1) || (wx2 & 1) || wy2 < 0 || wx2 < 0) continue;
-      const int kw = (wy2 >> 1) * PB_WC + (wx2 >> 1);
-      if (ids[kw] == t) d += dps[kw];
+        for (int h = 0; h < 2; ++h) {
+          const float* row = ap + (size_t)(2 * k + h) * Wo;
+          float* dst = reinterpret_cast<float*>(&ring_a[s][h][tid]);
+          if (kVec) {
+            cp_async_f32x4(dst, x0 < Wo ? row + x0 : row, x0 < Wo);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              cp_async_f32(dst + q, x0 + q < Wo ? row + x0 + q : row,
+                           x0 + q < Wo);
+          }
+        }
+        const float* drow = dpp + (size_t)k * Wq;
+        float* dst = reinterpret_cast<float*>(&ring_d[s][tid]);
+        if (kVec) {
+          cp_async_f32x2(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
+        } else {
+          cp_async_f32(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
+          cp_async_f32(dst + 1, j0 + 1 < Wq ? drow + j0 + 1 : drow,
+                       j0 + 1 < Wq);
+        }
+      }
+      cp_async_commit();
+    };
+    auto relu_bn = [&](float a) {
+      return fmaxf(bn_out(a, alpha, beta), 0.f);
+    };
+    // Row y's r from its act a (the lane's columns); the columns beyond
+    // the lane's from its neighbours or, across strips, from loads.
+    auto make_row = [&](int y, const float4 a4, PbRow& row) {
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        row.a[q] = a[q];
+        row.r[q] = x0 + q < Wo ? relu_bn(a[q]) : -1.f;
+      }
+      const float up = __shfl_up_sync(FULL, row.r[3], 1);
+      const float* src = ap + (size_t)y * Wo + x0;
+      row.left = lane > 0 ? up : far_left ? relu_bn(src[-1]) : -1.f;
+      row.e0 = far_right ? relu_bn(src[4]) : -1.f;
+      row.e1 = far_right ? relu_bn(src[5]) : -1.f;
+    };
+    // d_n of row y from the gathered cotangents d (masked where n <= 0);
+    // its sums into the unit's.
+    double s_dn = 0.0, s_dx = 0.0;
+    auto emit = [&](int y, const PbRow& row, float d0, float d1, float d2,
+                    float d3) {
+      float v[4] = {d0, d1, d2, d3};
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = row.r[q] > 0.f ? v[q] : 0.f;
+        const float xhat = __fmul_rn(__fsub_rn(row.a[q], mu), inv);
+        s1 += v[q];
+        s2 = fmaf(v[q], xhat, s2);
+      }
+      float* out = dnp + (size_t)y * Wo;
+      if (kVec && x0 < Wo) {
+        *reinterpret_cast<float4*>(out + x0) = make_float4(v[0], v[1], v[2],
+                                                           v[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (x0 + q < Wo) out[x0 + q] = v[q];
+      }
+      s_dn += (double)s1;
+      s_dx += (double)s2;
+    };
+    auto flush = [&](long long unit) {
+      double a = s_dn, b = s_dx;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(FULL, a, o);
+        b += __shfl_xor_sync(FULL, b, o);
+      }
+      if (lane == 0) {
+        partials[2 * unit] = a;
+        partials[2 * unit + 1] = b;
+      }
+      s_dn = s_dx = 0.0;
+    };
+
+#pragma unroll
+    for (int i = 0; i < PB_S - 1; ++i) fetch(k_first + i);
+    // top: row 2k - 1, the bottom row of window row k - 1
+    PbRow top;
+    if (k_first == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        top.a[q] = 0.f;
+        top.r[q] = -1.f;
+      }
+      top.left = top.e0 = top.e1 = -1.f;
+    } else {
+      const int y = 2 * k_first - 1;
+      float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* row = ap + (size_t)y * Wo;
+      if (kVec && x0 < Wo) {
+        a4 = *reinterpret_cast<const float4*>(row + x0);
+      } else {
+        if (x0 < Wo) a4.x = row[x0];
+        if (x0 + 1 < Wo) a4.y = row[x0 + 1];
+        if (x0 + 2 < Wo) a4.z = row[x0 + 2];
+        if (x0 + 3 < Wo) a4.w = row[x0 + 3];
+      }
+      make_row(y, a4, top);
     }
-    const float v = rs[(py + 1) * PB_RC + px + 1] > 0.f ? d : 0.f;
-    const size_t at = (size_t)y * Wo + xx;
-    dn[plane * Ho * Wo + at] = v;
-    const float xhat = __fmul_rn(__fsub_rn(ap[at], mu), inv);
-    s1 += v;
-    s2 = fmaf(v, xhat, s2);
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = s1;
-    red[1][tid >> 5] = s2;
-  }
-  __syncthreads();
-  if (tid < 2) {
-    float s = 0.f;
-    for (int q = 0; q < NTHREADS / 32; ++q) s += red[tid][q];
-    partials[((plane * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 2 +
-             tid] = s;
+    // window row k - 1's contributions to row 2k - 1 (taps 6, 7, 8)
+    float u0 = 0.f, u1a = 0.f, u1b = 0.f, u2 = 0.f, u3a = 0.f, u3b = 0.f;
+    for (int k = k_first; k <= k_last; ++k) {
+      // window row k (none at k = Hq): first maxima and cotangents
+      fetch(k + PB_S - 1);
+      cp_async_wait<PB_S - 1>();  // step k's copies (the lane's own) landed
+      int iA = 0, iB = 0, iC = 0;
+      float dA = 0.f, dB = 0.f, dC = 0.f;
+      PbRow mid, bot;
+      if (k < Hq) {
+        const int s = k % PB_S;
+        make_row(2 * k, ring_a[s][0][tid], mid);
+        make_row(2 * k + 1, ring_a[s][1][tid], bot);
+        const float2 d = ring_d[s][tid];
+        iA = first_max(top.left, top.r[0], top.r[1], mid.left, mid.r[0],
+                       mid.r[1], bot.left, bot.r[0], bot.r[1]);
+        iB = first_max(top.r[1], top.r[2], top.r[3], mid.r[1], mid.r[2],
+                       mid.r[3], bot.r[1], bot.r[2], bot.r[3]);
+        dA = d.x;
+        dB = d.y;
+        iC = __shfl_down_sync(FULL, iA, 1);
+        dC = __shfl_down_sync(FULL, dA, 1);
+        if (lane == 31) {
+          iC = first_max(top.r[3], top.e0, top.e1, mid.r[3], mid.e0, mid.e1,
+                         bot.r[3], bot.e0, bot.e1);
+          dC = far_right ? dpp[(size_t)k * Wq + j0 + 2] : 0.f;
+        }
+      }
+      // row 2k - 1: window row k's taps 0, 1, 2, then row k - 1's 6, 7, 8
+      if (k > k_first) {
+        emit(2 * k - 1, top, sel(iA, 1, dA) + u0,
+             ((sel(iB, 0, dB) + sel(iA, 2, dA)) + u1a) + u1b,
+             sel(iB, 1, dB) + u2,
+             ((sel(iC, 0, dC) + sel(iB, 2, dB)) + u3a) + u3b);
+        if (k % PB_CH == 0 || k == Hq) flush(ps * nchunks + (k - 1) / PB_CH);
+      }
+      if (k == k_last) break;
+      // row 2k: window row k's taps 3, 4, 5
+      emit(2 * k, mid, sel(iA, 4, dA), sel(iB, 3, dB) + sel(iA, 5, dA),
+           sel(iB, 4, dB), sel(iC, 3, dC) + sel(iB, 5, dB));
+      u0 = sel(iA, 7, dA);
+      u1a = sel(iB, 6, dB);
+      u1b = sel(iA, 8, dA);
+      u2 = sel(iB, 7, dB);
+      u3a = sel(iC, 6, dC);
+      u3b = sel(iB, 8, dB);
+      top = bot;
+    }
+    cp_async_wait<0>();  // no copy outlives its segment
   }
 }
 
@@ -860,29 +1074,39 @@ extern "C" {
 
 // Each launches on `stream` and returns the CUDA error of the launch (0
 // when it was accepted). `ctas` is the grid of the conv forward, dW and
-// d_x, which walk all B x tiles tiles with a stride of the grid
-// (r2l_stem_ctas). The partials' layouts are given with each function.
+// d_x, which walk all B x tiles tiles with a stride of the grid, and of
+// the pool backward, whose warps walk runs of its units (r2l_stem_ctas).
+// The partials' layouts are given with each function.
 // `coef` rows: see the kernels above.
 
 // Tiles per image of a kernel on an input of H x W (the tile shapes live
-// only in this file): kernel 0 conv forward, 1 pool backward, 2 dW, 3 d_x;
-// -1 for another kernel.
+// only in this file): kernel 0 conv forward, 1 pool backward (its units:
+// PB_CH window rows of a 128-column strip, per plane), 2 dW, 3 d_x; -1
+// for another kernel.
 int r2l_stem_tiles(int kernel, int H, int W) {
   const int Ho = H / 2, Wo = W / 2;
   switch (kernel) {
     case 0: return cdiv(Ho, CF_TH) * cdiv(Wo, CF_TW);
-    case 1: return cdiv(Ho / 2, PB_TH) * cdiv(Wo / 2, PB_TW);
+    case 1: return cdiv(Ho / 2, PB_CH) * cdiv(Wo, PB_SW);
     case 2: return cdiv(Ho, DW_TH) * cdiv(Wo, DW_TW);
     case 3: return cdiv(Ho, DX_TU) * cdiv(Wo, DX_TV);
   }
   return -1;
 }
 
-// Grid of a kernel that walks all B x tiles tiles with a stride of the
-// grid (0 conv forward, 2 dW, 3 d_x) on a card with `sms` SMs: one CTA
-// per SM, at most one per tile; -1 for another kernel. A function of the
-// shape and the card only, so repeated launches are bitwise equal.
+// Grid of a kernel on a card with `sms` SMs: for those that walk all B x
+// tiles tiles with a stride of the grid (0 conv forward, 2 dW, 3 d_x) one
+// CTA per SM, at most one per tile; for the pool backward (1) PB_CTAS per
+// SM, at most one warp per unit; -1 for another kernel. A function of the
+// shape and the card only, so repeated launches are bitwise equal (the
+// pool backward's results do not depend on its grid at all).
 int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
+  if (kernel == 1) {
+    const long long units =
+        (long long)B * C_OUT * r2l_stem_tiles(kernel, H, W);
+    const long long n = (units + PB_WARPS - 1) / PB_WARPS;
+    return n < (long long)sms * PB_CTAS ? (int)n : sms * PB_CTAS;
+  }
   if (kernel != 0 && kernel != 2 && kernel != 3) return -1;
   const int n = B * r2l_stem_tiles(kernel, H, W);
   return n < sms ? n : sms;
@@ -910,15 +1134,21 @@ int r2l_stem_bnpool(const float* act, const float* coef, float* out, int B,
   return (int)cudaGetLastError();
 }
 
-// partials: [B * 64][r2l_stem_tiles(1, 2 Ho, 2 Wo)][2] (sum of d_n, sum of
-// d_n xhat), the tiles row-major.
+// partials: [B * 64][r2l_stem_tiles(1, 2 Ho, 2 Wo)][2] float64 (sum of d_n,
+// sum of d_n xhat), the units of a plane strip-major. Rows of a width that
+// is a multiple of 4, in 16-byte aligned tensors, take 16-byte loads and
+// stores.
 int r2l_stem_pool_bwd(const float* act, const float* dp, const float* coef,
-                      float* dn, float* partials, int B, int Ho, int Wo,
-                      void* stream) {
-  const int Hq = Ho / 2, Wq = Wo / 2;
-  const dim3 grid(cdiv(Wq, PB_TW), cdiv(Hq, PB_TH), B * C_OUT);
-  stem_pool_bwd_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      act, dp, coef, dn, partials, Ho, Wo);
+                      float* dn, double* partials, int B, int Ho, int Wo,
+                      int ctas, void* stream) {
+  const bool vec = Wo % 4 == 0 &&
+                   ((uintptr_t)act | (uintptr_t)dn) % 16 == 0 &&
+                   (uintptr_t)dp % 8 == 0;
+  auto kernel = vec ? stem_pool_bwd_kernel<true> : stem_pool_bwd_kernel<false>;
+  const int err = set_smem(kernel, PB_SMEM);
+  if (err != 0) return err;
+  kernel<<<ctas, NTHREADS, PB_SMEM, (cudaStream_t)stream>>>(
+      act, dp, coef, dn, partials, B, Ho, Wo);
   return (int)cudaGetLastError();
 }
 
@@ -944,9 +1174,9 @@ int r2l_stem_conv_dx(const float* act, const float* dn, const float* coef,
 }
 
 // Kernel `which` of this file (0 conv forward, 1 BN-pool, 2 pool
-// backward, 3 dW, 4 d_x): its name, registers per thread, CTAs per SM
-// and shared bytes per CTA (kernel_info.cuh); null past the last or on an
-// error.
+// backward, 3 dW, 4 d_x, 5 the pool backward's scalar form): its name,
+// registers per thread, CTAs per SM and shared bytes per CTA
+// (kernel_info.cuh); null past the last or on an error.
 const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
                             int* smem) {
   switch (which) {
@@ -956,15 +1186,18 @@ const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
     case 1: return r2l_occupancy((const void*)stem_bnpool_kernel,
                                  "stem_bnpool_kernel", NTHREADS, 0, regs,
                                  ctas_per_sm, smem);
-    case 2: return r2l_occupancy((const void*)stem_pool_bwd_kernel,
-                                 "stem_pool_bwd_kernel", NTHREADS, 0, regs,
-                                 ctas_per_sm, smem);
+    case 2: return r2l_occupancy((const void*)stem_pool_bwd_kernel<true>,
+                                 "stem_pool_bwd_kernel<true>", NTHREADS,
+                                 PB_SMEM, regs, ctas_per_sm, smem);
     case 3: return r2l_occupancy((const void*)stem_conv_dw_kernel,
                                  "stem_conv_dw_kernel", NTHREADS, DW_SMEM,
                                  regs, ctas_per_sm, smem);
     case 4: return r2l_occupancy((const void*)stem_conv_dx_kernel,
                                  "stem_conv_dx_kernel", NTHREADS, DX_SMEM,
                                  regs, ctas_per_sm, smem);
+    case 5: return r2l_occupancy((const void*)stem_pool_bwd_kernel<false>,
+                                 "stem_pool_bwd_kernel<false>", NTHREADS,
+                                 PB_SMEM, regs, ctas_per_sm, smem);
   }
   return nullptr;
 }

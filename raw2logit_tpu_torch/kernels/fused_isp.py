@@ -111,13 +111,10 @@ def _check(raw):
         raise TypeError(f"fused_isp needs float32 raw, got {raw.dtype}")
     if raw.ndim != 3:
         raise ValueError(f"fused_isp needs raw (B, H, W), got {raw.shape}")
-    b, h, w = raw.shape
+    _, h, w = raw.shape
     if h < 3 or w < 3:
         raise ValueError(f"fused_isp needs H, W >= 3 (reflect pad), got "
                          f"{h}x{w}")
-    if b > 65535:
-        raise ValueError(f"fused_isp launches one grid z-slice per image; "
-                         f"B={b} exceeds 65535")
     if not raw.is_contiguous():
         raise ValueError("fused_isp needs a contiguous raw tensor")
 

@@ -17,8 +17,9 @@ need H a multiple of 32. Anything else raises.
 
 Each wrapper launches its kernel on a CUDA tensor (and raises if the
 launch fails) and runs its plain version on a CPU tensor; ``.launches``
-counts kernel launches. The statistics and dW are per-CTA partials summed
-here in float64, so two launches are bitwise equal.
+counts kernel launches. The statistics, the pool backward's sums and dW
+are per-CTA (or per-unit) partials summed here in float64, so two launches
+are bitwise equal.
 """
 
 import ctypes
@@ -215,11 +216,10 @@ def _raise_on(lib, rc, what):
 
 
 def _ctas(lib, kernel, device, shape):
-    """Grid of a kernel that walks all B x tiles tiles of input ``shape``
-    (B, 3, H, W) with a stride of the grid (``r2l_stem_ctas``: one CTA
-    per SM, at most one per tile). A function of
-    the shape and the card only, so repeated launches are bitwise
-    equal."""
+    """Grid of a kernel that walks the tiles (or, the pool backward, the
+    units) of input ``shape`` (B, 3, H, W) with a persistent grid
+    (``r2l_stem_ctas``). A function of the shape and the card only, so
+    repeated launches are bitwise equal."""
     b, _, h, w = shape
     return lib.r2l_stem_ctas(kernel, b, h, w, sm_count(device.index or 0))
 
@@ -292,21 +292,22 @@ def stem_pool_bwd(act, d_pooled, alpha, beta, mean, inv):
     _check_plane("pooled cotangent", d_pooled, (b, C_OUT, ho // 2, wo // 2))
     if not _on_cuda(act, d_pooled, alpha, beta, mean, inv):
         return stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv)
-    if b * C_OUT > 65535:
-        raise ValueError(f"stem_pool_bwd launches one grid z-slice per "
-                         f"plane; B={b} exceeds 1023")
     lib = _library()
+    x_shape = (b, C_IN, 2 * ho, 2 * wo)
     d_n = torch.empty_like(act)
+    # one float64 pair per unit of the kernel's walk
     partials = torch.empty(
         (b, C_OUT, lib.r2l_stem_tiles(_POOL_BWD, 2 * ho, 2 * wo), 2),
-        dtype=torch.float32, device=act.device)
+        dtype=torch.float64, device=act.device)
     coef = _coef((alpha, beta, mean, inv))
     rc = lib.r2l_stem_pool_bwd(act.data_ptr(), d_pooled.data_ptr(),
                                coef.data_ptr(), d_n.data_ptr(),
-                               partials.data_ptr(), b, ho, wo, _stream(act))
+                               partials.data_ptr(), b, ho, wo,
+                               _ctas(lib, _POOL_BWD, act.device, x_shape),
+                               _stream(act))
     _raise_on(lib, rc, "stem_pool_bwd")
     stem_pool_bwd.launches += 1
-    sums = partials.double().sum((0, 2))
+    sums = partials.sum((0, 2))
     return d_n, sums[:, 0], sums[:, 1]
 
 
@@ -481,7 +482,7 @@ def _library():
                                       ptr]
     lib.r2l_stem_bnpool.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.r2l_stem_pool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                      ptr]
+                                      i32, ptr]
     lib.r2l_stem_conv_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                      i32, ptr]
     lib.r2l_stem_conv_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

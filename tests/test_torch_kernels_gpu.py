@@ -54,9 +54,20 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
+# Shapes that cut the ISP forward's walk (csrc/fused_isp_fwd.cu: 32 x 64
+# tiles; 3 CTAs per SM, 396 on an H100 SXM's 132 SMs, at most one per
+# tile; CTA k takes the run of tiles [k n / grid, (k + 1) n / grid) over
+# (b, tile row, tile col)): 16x130x260, 400 tiles, five tile rows and
+# columns with ragged last ones (2 rows, 4 columns), runs of 1 and 2 tiles;
+# 2x33x67, odd sides, rows that are not 16-byte aligned (4-byte copies);
+# 64x256x256, 2,048 tiles, runs of 5 and 6 that hold border and interior
+# tiles.
+FWD_SHAPES = [(16, 130, 260), (2, 33, 67), (64, 256, 256)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(4, 256, 256), (2, 250, 250),
-                                   (3, 67, 45), (1, 3, 3)])
+                                   (3, 67, 45), (1, 3, 3), *FWD_SHAPES])
 def test_fused_isp_matches_plain(shape, cuda, rng):
     """Non-symmetric filters, cross-channel debayer taps, dark-to-bright
     exposures; edge, corner and ragged tiles. Tolerance: 2e-5 abs plus a
@@ -106,7 +117,8 @@ def perturbed_params(cuda, rng, camera=MILD_CAM):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45), (1, 3, 3)])
+@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 67, 45), (1, 3, 3),
+                                   *FWD_SHAPES])
 def test_fused_isp_train_matches_plain(shape, cuda, rng):
     """The training forward: RGB as the serving kernel's (bitwise) and
     within the serving kernel's tolerance of the plain version; residual
@@ -212,11 +224,13 @@ def test_fused_isp_bwd_matches_plain(shape, variant, cotangent, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 130, 97), *WALK_SHAPES])
+@pytest.mark.parametrize("shape", [(3, 130, 97), *WALK_SHAPES,
+                                   *FWD_SHAPES[:2]])
 def test_fused_isp_bwd_variants_agree_and_repeat(shape, cuda, rng):
     """Residual and recompute variants within chip_smoke.VARIANT_TOL (1e-6
     abs); two launches of the residual variant bitwise identical; at the
-    shapes that cut the kernel's walk over tiles (WALK_SHAPES)."""
+    shapes that cut the backward's walk over tiles (WALK_SHAPES) and the
+    forward's (FWD_SHAPES), whose residuals the residual variant reads."""
     params = perturbed_params(cuda, rng)
     raw = torch.as_tensor(rng.uniform(0, 1, shape),
                           dtype=torch.float32, device=cuda)
@@ -370,20 +384,57 @@ def test_plain_versions_stay_float32_under_tf32(cuda_tf32):
     assert torch.backends.cudnn.allow_tf32  # the caller's setting is back
 
 
+# Shapes that cut the pool backward's walk (csrc/stem.cu, section 3:
+# strips of 128 pre-pool columns, units of 8 window rows of one strip of
+# one plane, the warps of an r2l_stem_ctas grid, 8 a CTA and 3 CTAs per SM,
+# 3,168 on an H100 SXM's 132 SMs, each taking a run of consecutive units):
+# 2x36x520, three strips (128, 128 and 4 columns) of 16-byte rows and two
+# units down each (9 window rows); 1x20x524, three strips of rows 262 wide
+# (4-byte copies, scalar stores); 1100x4x8, past the first port's limit of
+# 1,023 images (one grid z-slice per plane), 70,400 one-unit planes, so
+# runs cross planes; 64x256x256, 32,768 units of which a plane holds 8,
+# runs of 10 and 11 that start and end inside planes.
+# test_stem_pool_bwd_walk_shapes holds these counts on the card at hand.
+POOL_BWD_SHAPES = [(2, 3, 36, 520), (1, 3, 20, 524), (1100, 3, 4, 8),
+                   (64, 3, 256, 256)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["isp", "random"])
 @pytest.mark.parametrize("shape", [(4, 3, 256, 256), (3, 3, 68, 44),
-                                   (1, 3, 4, 8), (2, 3, 100, 140)], ids=str)
+                                   (1, 3, 4, 8), (2, 3, 100, 140),
+                                   *POOL_BWD_SHAPES], ids=str)
 def test_stem_kernels_match_plain(shape, inputs, cuda):
     """Each stem kernel against its plain version on the same inputs
     (chip_smoke.stem_agreement: the STEM_* limits, pooled and d_n bitwise,
     dW and d_x against float64 too), random inputs with planted ties in
-    the pool, two launches bitwise equal."""
+    the pool, two launches bitwise equal; also at the shapes that cut the
+    pool backward's walk (POOL_BWD_SHAPES)."""
     w, gamma, beta = stem_params(cuda)
     x = stem_input(cuda, shape, inputs)
     for name, (stats, ok) in stem_agreement(x, w, gamma, beta,
                                             inputs == "random").items():
         assert ok, (name, stats)
+
+
+@pytest.mark.gpu
+def test_stem_pool_bwd_walk_shapes(cuda):
+    """POOL_BWD_SHAPES cut the pool backward's walk on this card as their
+    comment says."""
+    from raw2logit_tpu_torch.kernels.build import sm_count
+    from raw2logit_tpu_torch.kernels.stem import _POOL_BWD, _library
+    sms, lib = sm_count(cuda.index or 0), _library()
+    walk = {}
+    for b, _, h, w in POOL_BWD_SHAPES:
+        per_plane = lib.r2l_stem_tiles(_POOL_BWD, h, w)
+        walk[h, w] = (per_plane, b * 64 * per_plane,
+                      8 * lib.r2l_stem_ctas(_POOL_BWD, b, h, w, sms))
+    assert walk[36, 520][0] == 3 * 2 and walk[20, 524][0] == 3
+    per_plane, units, warps = walk[4, 8]
+    assert per_plane == 1 and units > warps == 24 * sms
+    per_plane, units, warps = walk[256, 256]
+    assert per_plane == 8 and warps == 24 * sms and units % warps
+    assert (units // warps) % per_plane and (units // warps + 1) % per_plane
 
 
 @pytest.mark.gpu
