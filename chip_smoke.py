@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and drift-forensics paths, and
-the fused ResNet stem, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and drift-forensics paths, the
+fused ResNet stem, and the static ISP's drift-synthesis path, on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -96,7 +97,25 @@ line):
    and without), of an adversarial step and of the recompute backward
    (torch.profiler), at B=32 and B=256; at B=256 beside the device ms of
    the redesigned kernels as first ported (``FIRST_PORT_DEVICE_MS``).
-16. the ``kernels`` line, then the ``ok`` line.
+16. static gates: the static ISP (no kernel of the port on its path) on
+   the card in float32 against the port's own float64 run on the CPU, at
+   B=32, 256x256 (SyntheticMicroscopy mosaics at exposures from dark to
+   bright): Menon's decision map (flipped share), the three demosaic
+   stages, and the nine pipelines of tests/test_isp.py with TV-Chambolle
+   and the bilateral filter, before and after gamma (``STATIC_*``,
+   ``MENON_*``).
+17. static cli: a 1-epoch --test_run of ``--processing_mode static
+   --precompute_static`` through the training CLI, then ``serving.main``
+   on that run over 64 synthetic DNGs: one record per file, the logits of
+   ``Predictor.from_run`` equal to the trained classifier's, no kernel
+   launched.
+18. static precompute: ``precompute_pipeline_rgb`` in images/s for each
+   debayer (batches of 256, 512 mosaics in host memory).
+19. static times and profile: the static train step in graph (the CLI's
+   choices, and menon2007) and on precomputed RGB at B=32 and B=256, its
+   CUDA-event ms with the launch counts at 0 before and after, its device
+   time by kernel and idle share (no port kernel in the profile).
+20. the ``kernels`` line, then the ``ok`` line.
 """
 
 import copy
@@ -111,9 +130,12 @@ import numpy as np
 import torch
 
 from raw2logit_tpu_torch.data import (MICROSCOPY_CAMERA_PARAMS,
+                                      ArrayDataset,
                                       SyntheticRawClassification,
-                                      load_image, write_dng)
-from raw2logit_tpu_torch.isp import ParametrizedProcessing, TorchBatchNorm
+                                      dataset_stats, load_image,
+                                      precompute_pipeline_rgb, write_dng)
+from raw2logit_tpu_torch.isp import (ParametrizedProcessing, StaticPipeline,
+                                     TorchBatchNorm, static_process)
 from raw2logit_tpu_torch.kernels import (
     PARAM_NAMES, batch_stats, bn_backward_coef, bn_fold, bn_input_cotangent,
     fused_isp, fused_isp_bwd, fused_isp_bwd_reference, fused_isp_reference,
@@ -123,7 +145,13 @@ from raw2logit_tpu_torch.kernels import (
     stem_conv_dx_reference, stem_conv_reference, stem_pool_bwd,
     stem_pool_bwd_reference, stem_reference, unpack_grads, window_taps)
 from raw2logit_tpu_torch.kernels.build import build, kernel_info
+from raw2logit_tpu_torch.isp.static import GAMMA as STATIC_GAMMA
+from raw2logit_tpu_torch.isp.static import camera_stage, filter_stage
+from raw2logit_tpu_torch.ops.color import (adjust_gamma, colour_correction,
+                                           white_balance)
+from raw2logit_tpu_torch.ops.demosaic import DEMOSAIC_FNS, menon_decision
 from raw2logit_tpu_torch.ops.filters import full_float32
+from raw2logit_tpu_torch.ops.mosaic import subtract_black_level_cfa
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
@@ -311,6 +339,42 @@ FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
 # tests/test_torch_batchnorm.py holds them on the CPU (it says why);
 # running statistics over their max |.|, one float32 update.
 BN_Y_ATOL, BN_GRAD_REL, BN_STATS_REL = 1e-5, 1e-5, 1e-6
+# The static ISP (static phases; no kernel of the port runs on its path):
+# the nine pipelines of tests/test_isp.py:22-27, and TV-Chambolle and the
+# bilateral filter behind the CLI's default debayer and sharpening, on the
+# microscopy camera of SyntheticMicroscopy.
+STATIC_PIPELINES = tuple(
+    (d, s, n) for d in ("bilinear", "malvar2004", "menon2007")
+    for s, n in (("sharpening_filter", "gaussian_denoising"),
+                 ("unsharp_masking", "median_denoising"),
+                 ("sharpening_filter", "fft_denoising"))) + (
+    ("bilinear", "sharpening_filter", "tv_chambolle"),
+    ("bilinear", "sharpening_filter", "bilateral"))
+# The card's float32 run against the port's own float64 run on the CPU,
+# abs: the demosaic stage and the pre-gamma (clipped) image at 2e-5; the
+# final image at 5e-4 (tests/test_isp.py:37) plus what the gamma curve
+# x^p, p = 1 / gamma, makes of the pixel's own pre-gamma difference d:
+# the smaller of p min(a, b)^(p - 1) d (the mean value theorem: the
+# slope is largest at the smaller value) and d^p (|a^p - b^p| <= |a - b|^p
+# for p < 1), the second finite where the first is not, at a clipped 0.
+# Near the clip floor a float32 rounding moves the output past 5e-4 (on
+# the CPU, float32 against float64 at B = 32: 9.8e-4 after the FFT
+# denoiser, 1.4e-3 after the bilateral filter, with pre-gamma differences
+# below 5e-6).
+STATIC_STAGE_TOL, STATIC_PRE_TOL, STATIC_FINAL_TOL = 2e-5, 2e-5, 5e-4
+# The float64 witness of TV-Chambolle (200 iterations, most of the static
+# gates' CPU time) runs on every STATIC_CHAMBOLLE_EVERY-th image of the
+# batch, dark to bright: the filter works plane by plane, so a subset's
+# result is the same rows of the batch's.
+STATIC_CHAMBOLLE_EVERY = 4
+# Menon's direction is the hard switch sum_v >= sum_h. Where float32 and
+# float64 decide a near-tie differently, the demosaic moves by up to ~0.2
+# at and around the site (the FFT denoiser spreads it along the row). So
+# an image with a flipped site is left out of the Menon gates; every flip
+# must be a near-tie, |sum_v - sum_h| <= MENON_TIE_REL (sum_v + sum_h) in
+# float64, at most MENON_FLIP_SHARE of the sites may flip, and at least
+# MENON_MIN_KEPT of the batch's images must stay in the gates.
+MENON_TIE_REL, MENON_FLIP_SHARE, MENON_MIN_KEPT = 1e-5, 1e-5, 0.75
 
 
 def emit(obj):
@@ -694,14 +758,20 @@ def train_classifier(device, setup="as_built", seed=SEED):
                         generator=torch.Generator(device).manual_seed(seed))
 
 
+def labelled_mosaics(device, batch, size=SIZE, seed=SEED):
+    """``batch`` synthetic mosaics and their labels, on the device."""
+    ds = SyntheticRawClassification(n=batch, h=size, w=size, seed=seed)
+    raw = torch.as_tensor(np.stack([ds[i][0] for i in range(batch)]),
+                          dtype=torch.float32, device=device)
+    y = torch.as_tensor([ds[i][1] for i in range(batch)], device=device)
+    return raw, y
+
+
 def train_setup(device, batch, size=SIZE):
     """Full-width train inputs: labelled synthetic mosaics on the device,
     the perturbed microscopy ISP (fused-kernel path, BN output) and the
     ResNet-18 as built."""
-    ds = SyntheticRawClassification(n=batch, h=size, w=size, seed=SEED)
-    raw = torch.as_tensor(np.stack([ds[i][0] for i in range(batch)]),
-                          dtype=torch.float32, device=device)
-    y = torch.as_tensor([ds[i][1] for i in range(batch)], device=device)
+    raw, y = labelled_mosaics(device, batch, size)
     proc = processor(device, use_kernel=True).train()
     return raw, y, proc, train_classifier(device)
 
@@ -1159,12 +1229,40 @@ def phase_adversarial(device, batch=SERVE_BATCH, steps=ADV_STEPS):
     return main
 
 
-def phase_cli(device, batch=SERVE_BATCH):
+def write_dngs(img_dir, n_images, seed, size=SIZE):
+    """``n_images`` 16-bit DNGs of SyntheticRawClassification mosaics in a
+    new ``img_dir``; returns their paths in the order serving reads
+    them."""
+    ds = SyntheticRawClassification(n=n_images, h=size, w=size, seed=seed)
+    os.makedirs(img_dir)
+    for i in range(n_images):
+        write_dng(os.path.join(img_dir, f"img_{i:03d}.dng"),
+                  np.round(ds[i][0] * 65535).astype(np.uint16))
+    return [os.path.join(img_dir, f) for f in sorted(os.listdir(img_dir))]
+
+
+def served_records(out, paths, n_classes):
+    """The records of a predictions file: one per file in ``paths``, in
+    order, with finite logits; returns the logits (n, n_classes)."""
+    with open(out) as fh:
+        records = [json.loads(line) for line in fh]
+    check([r["file"] for r in records] == paths, "one record per file")
+    logits = np.array([r["logits"] for r in records])
+    check(logits.shape == (len(paths), n_classes)
+          and bool(np.isfinite(logits).all()), f"finite logits {logits.shape}")
+    return logits
+
+
+def phase_cli(device, batch=SERVE_BATCH, n_images=SERVE_IMAGES):
     """The forensics sequence through the training CLI on the card, with
     the fused kernels and --test_run: a pretraining run (frozen ISP, weak
     augmentation, 1 epoch), then an attack on gamma with the noise layer
     through the classifier file it wrote (SSIM aux weight -1, 2 epochs).
-    Returns the attack's launch counts."""
+    Between them ``serving.main`` serves the pretraining run from its run
+    directory on ``n_images`` synthetic DNGs: the fused serving kernel
+    once per batch, and the logits of the trained modules. Returns the
+    attack's launch counts."""
+    from raw2logit_tpu_torch import serving
     from raw2logit_tpu_torch.training import train as cli
     common = ["--dataset", "SyntheticMicroscopy", "--batch_size", str(batch),
               "--n_splits", "1", "--use_pallas", "--test_run",
@@ -1178,6 +1276,15 @@ def phase_cli(device, batch=SERVE_BATCH):
                 "--freeze_processor", "--augmentation", "weak", "--epochs",
                 "1", "--lr", "1e-3", "--run_name", "pretrain"])
             pre_s = time.perf_counter() - t0
+            paths = write_dngs("dng", n_images, SEED + 2)
+            reset_counts()
+            out = serving.main([
+                "--experiment_name", "forensics", "--run_name", "pretrain",
+                "--image_dir", "dng", "--dataset", "SyntheticMicroscopy",
+                "--batch_size", str(batch), "--out", "pred.jsonl"])
+            served = counts()
+            logits = served_records(out, paths, 2)
+            raws = np.stack([load_image(p) / 65535.0 for p in paths])
             clf_path = os.path.join(pre["run"].dir, "checkpoints",
                                     "classifier.pt")
             reset_counts()
@@ -1194,6 +1301,13 @@ def phase_cli(device, batch=SERVE_BATCH):
             pre_metrics = pre["run"].read_metrics()
         finally:
             os.chdir(cwd)
+    trained = Predictor(copy.deepcopy(pre["state"].processor),
+                        copy.deepcopy(pre["state"].classifier), device=device)
+    trained_logits = np.concatenate([
+        trained(raws[i:i + batch]).cpu().numpy()
+        for i in range(0, n_images, batch)])
+    serve_err = float(np.abs(logits - trained_logits).max())
+    n_batches = -(-n_images // batch)
     state = adv["state"]
     ref = dict(state.ref_processor.named_parameters())
     drifted = sorted(n for n, t in state.processor.named_parameters()
@@ -1204,7 +1318,13 @@ def phase_cli(device, batch=SERVE_BATCH):
                                     if "val_accuracy" in m],
           "attack_val_accuracy": [m["val_accuracy"] for m in metrics
                                   if "val_accuracy" in m],
-          "val_loss_aux": aux, "drifted": drifted, "launches": attack})
+          "val_loss_aux": aux, "drifted": drifted, "launches": attack,
+          "served_images": n_images, "served_launches": served,
+          "served_vs_trained_max_abs": serve_err, "tol": LOGIT_TOL})
+    check(served == launches(fwd=n_batches), f"serving the pretraining run "
+                                             f"launched {served}")
+    check(serve_err <= LOGIT_TOL, f"served logits against the trained "
+                                  f"modules: {serve_err}")
     check(len(aux) == 2 and all(np.isfinite(aux)), f"val_loss_aux rows {aux}")
     check(set(drifted) <= {"gamma_correct", "additive_layer"}
           and "gamma_correct" in drifted, f"drifted parameters {drifted}")
@@ -1216,13 +1336,9 @@ def phase_serve(device, n_images=SERVE_IMAGES, size=SIZE,
                 batch=SERVE_BATCH):
     proc = processor(device, use_kernel=True)
     clf = classifier(device)
-    ds = SyntheticRawClassification(n=n_images, h=size, w=size, seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
         img_dir = os.path.join(tmp, "dng")
-        os.makedirs(img_dir)
-        for i in range(n_images):
-            mosaic = np.round(ds[i][0] * 65535).astype(np.uint16)
-            write_dng(os.path.join(img_dir, f"img_{i:03d}.dng"), mosaic)
+        write_dngs(img_dir, n_images, SEED, size)
         pred = Predictor(proc, clf, classes=[f"c{i}" for i in range(9)],
                          device=device)
         reset_counts()
@@ -1951,18 +2067,292 @@ def phase_bn(device):
     return found
 
 
+def static_pipeline(debayer="bilinear", sharpening="sharpening_filter",
+                    denoising="gaussian_denoising"):
+    """A static pipeline on the microscopy camera; the defaults are the
+    CLI's."""
+    return StaticPipeline(camera_parameters=MICROSCOPY_CAMERA_PARAMS,
+                          debayer=debayer, sharpening=sharpening,
+                          denoising=denoising)
+
+
+def menon_flips(cfa, cfa64):
+    """Menon's decisions on the card against the float64 CPU run: (the
+    flipped sites' mask (B, H, W) on the CPU, a report)."""
+    m = menon_decision(cfa)[0].cpu()
+    m64, sum_h, sum_v = menon_decision(cfa64)
+    flips = m != m64
+    gap = ((sum_v - sum_h).abs() / (sum_v + sum_h))[flips]
+    sites = [[*map(int, at), float(sum_h[tuple(at)]), float(sum_v[tuple(at)])]
+             for at in flips.nonzero()[:8]]
+    return flips, {"menon_flipped_share": float(flips.double().mean()),
+                   "menon_flips": int(flips.sum()),
+                   "menon_flip_sites_b_y_x_sum_h_sum_v": sites,
+                   "menon_flip_max_rel_gap": float(gap.max()) if len(gap)
+                   else 0.0}
+
+
+def static_gates(device, raw, pipelines=STATIC_PIPELINES):
+    """The static ISP on the card in float32 against the port's own run of
+    the same functions in float64 on the CPU, on mosaics ``raw`` (B, H,
+    W): Menon's decision map, each demosaic stage, and each pipeline
+    before gamma and after (``STATIC_*``, ``MENON_*``). The float64 camera
+    stage runs once per debayer, for its gate and its pipelines. Returns
+    one report per stage and pipeline."""
+    black_level, wb, ccm = MICROSCOPY_CAMERA_PARAMS
+    raw64 = raw.double().cpu()
+    cfa = subtract_black_level_cfa(raw.to(device), black_level)
+    cfa64 = subtract_black_level_cfa(raw64, black_level)
+    flips, menon = menon_flips(cfa, cfa64)
+    keep = ~flips.flatten(1).any(1)  # images without a flipped site
+    menon["menon_images_left_out"] = int((~keep).sum())
+    check(float(keep.double().mean()) >= MENON_MIN_KEPT,
+          f"{MENON_MIN_KEPT} of the images without a Menon flip: {menon}")
+    check(menon["menon_flipped_share"] <= MENON_FLIP_SHARE
+          and menon["menon_flip_max_rel_gap"] <= MENON_TIE_REL,
+          f"Menon's decisions against float64: {menon}")
+    reports = [{"stage": "menon_decision", **menon}]
+
+    camera64 = {}
+    for name, fn in DEMOSAIC_FNS.items():
+        dem64 = fn(cfa64)
+        want = dem64[keep] if name == "menon2007" else dem64
+        got = fn(cfa).cpu().double()
+        got = got[keep] if name == "menon2007" else got
+        err = float((got - want).abs().max())
+        reports.append({"stage": "demosaic", "debayer": name,
+                        "max_abs_err": err, "tol": STATIC_STAGE_TOL})
+        check(err <= STATIC_STAGE_TOL, f"demosaic {name}: {err}")
+        camera64[name] = colour_correction(white_balance(dem64, wb), ccm)
+    p = 1.0 / STATIC_GAMMA
+    every = torch.arange(raw.shape[0])
+    for d, s, n in pipelines:
+        pre_card = filter_stage(camera_stage(raw.to(device),
+                                             *MICROSCOPY_CAMERA_PARAMS, d),
+                                s, n)
+        final_card = static_process(raw.to(device), *MICROSCOPY_CAMERA_PARAMS,
+                                    debayer=d, sharpening=s, denoising=n)
+        check(final_card.shape == (raw.shape[0], 3) + raw.shape[1:]
+              and bool(torch.isfinite(final_card).all()),
+              f"{d}/{s}/{n}: finite output of shape {tuple(final_card.shape)}")
+        rows = every[::STATIC_CHAMBOLLE_EVERY if n == "tv_chambolle" else 1]
+        pre64 = filter_stage(camera64[d][rows], s, n)
+        if d == "menon2007":  # after the filter: the bilateral's coupling
+            pre64, rows = pre64[keep[rows]], rows[keep[rows]]
+        final64 = adjust_gamma(pre64, STATIC_GAMMA)
+        pre = pre_card.cpu().double()[rows]
+        final = final_card.cpu().double()[rows]
+        pre_err = (pre - pre64).abs()
+        final_err = (final - final64).abs()
+        slope = p * torch.minimum(pre, pre64).pow(p - 1)
+        tol = STATIC_FINAL_TOL + torch.where(
+            pre_err > 0, torch.minimum(slope * pre_err, pre_err.pow(p)),
+            torch.zeros_like(pre_err))
+        off_floor = pre64 > 0.01  # slope below 5.3 there
+        rep = {"stage": "pipeline", "pipeline": [d, s, n],
+               "images": len(rows),
+               "pre_gamma_max_abs_err": float(pre_err.max()),
+               "final_max_abs_err": float(final_err.max()),
+               "final_max_abs_err_off_floor": float(
+                   final_err[off_floor].max()),
+               "final_max_err_over_tol": float((final_err / tol).max()),
+               "share_clipped_to_0": float((pre64 == 0).double().mean()),
+               "share_clipped_to_1": float((pre64 == 1).double().mean())}
+        reports.append(rep)
+        check(rep["pre_gamma_max_abs_err"] <= STATIC_PRE_TOL
+              and rep["final_max_err_over_tol"] <= 1.0,
+              f"static pipeline {d}/{s}/{n} against float64: {rep}")
+    return reports
+
+
+def phase_static_gates(device, batch=SERVE_BATCH, size=SIZE):
+    """The gates of ``static_gates`` at B = 32, 256x256, on
+    SyntheticMicroscopy mosaics at exposures from dark to bright (at full
+    exposure the microscopy camera clips most pixels to 1)."""
+    raw, _ = labelled_mosaics(torch.device("cpu"), batch, size)
+    raw *= torch.linspace(0.05, 1.0, batch)[:, None, None]
+    t0 = time.perf_counter()
+    reports = static_gates(device, raw)
+    for rep in reports:
+        emit({"phase": "static_gates", "shape": [batch, size, size], **rep})
+    emit({"phase": "static_gates", "seconds": time.perf_counter() - t0})
+
+
+def static_runner(device, raw, y, debayer="bilinear", precomputed=False):
+    """A static-mode train step on mosaics ``raw`` and labels ``y`` on the
+    device (the CLI's defaults but for ``debayer``; ResNet-18 as built,
+    the static ISP frozen), in graph or on RGB precomputed by the same
+    pipeline: a callable taking and ignoring one argument (for
+    ``cuda_ms``)."""
+    from raw2logit_tpu_torch.training.train import _StaticAsModule
+    stats = dataset_stats("SyntheticMicroscopy")
+    proc = _StaticAsModule(static_pipeline(debayer), stats["mean"],
+                           stats["std"], device)
+    if precomputed:
+        with torch.no_grad():
+            raw, proc = proc(raw)[0], None
+    cfg = TrainConfig(lr=TRAIN_LR, freeze_processor=True)
+    clf = train_classifier(device)
+    state = create_train_state(cfg, proc, clf)
+    step = make_train_step(cfg, proc, clf)
+    return lambda _: step(state, raw, y)
+
+
+STATIC_STEPS = {"static_train": {},
+                "static_train_menon2007": {"debayer": "menon2007"},
+                "static_precomputed": {"precomputed": True}}
+
+
+def phase_static_times(device, batches=(SERVE_BATCH, BIG_BATCH)):
+    """CUDA-event ms of the static train steps (in graph with the CLI's
+    choices and with menon2007, and on precomputed RGB), each run with the
+    launch counts set to 0 just before and read just after: no kernel of
+    the port runs on these paths. Returns {(what, batch): runner}."""
+    runners = {}
+    for b in batches:
+        row = {}
+        raw, y = labelled_mosaics(device, b)
+        for what, kw in STATIC_STEPS.items():
+            runners[what, b] = run = static_runner(device, raw, y, **kw)
+            reset_counts()
+            row[what + "_step_ms"] = cuda_ms(run, [None, None], 10)
+            seen = counts()
+            check(seen == launches(), f"{what} launches no kernel: {seen}")
+            row[what + "_imgs_per_s"] = b / row[what + "_step_ms"] * 1e3
+        emit({"phase": "static_times", "shape": [b, SIZE, SIZE], **row})
+    return runners
+
+
+def phase_static_precompute(device, n_images=2 * BIG_BATCH,
+                            batch=BIG_BATCH):
+    """``precompute_pipeline_rgb`` in images/s for each debayer (the CLI's
+    sharpening and denoising), over ``n_images`` 256x256 mosaics held in
+    host memory (their generation not timed), batches of ``batch``."""
+    raw, y = labelled_mosaics(torch.device("cpu"), batch)
+    ds = ArrayDataset(np.concatenate([raw.numpy()] * (n_images // batch)),
+                      np.concatenate([y.numpy()] * (n_images // batch)))
+    row = {}
+    for name in DEMOSAIC_FNS:
+        pipe = static_pipeline(name)
+        precompute_pipeline_rgb(ds, pipe, batch_size=batch, device=device,
+                                indices=range(batch))  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb = precompute_pipeline_rgb(ds, pipe, batch_size=batch,
+                                      device=device)
+        seconds = time.perf_counter() - t0
+        check(counts() == launches(), f"precompute launches {counts()}")
+        check(rgb.shape == (n_images, 3, *raw.shape[1:])
+              and bool(np.isfinite(rgb).all()), f"precomputed {rgb.shape}")
+        row[name + "_imgs_per_s"] = n_images / seconds
+    emit({"phase": "static_precompute", "images": n_images, "batch": batch,
+          **row})
+
+
+def phase_static_cli(device, batch=SERVE_BATCH, n_images=SERVE_IMAGES):
+    """The drift-synthesis flow through the CLIs on the card: a 1-epoch
+    --test_run of --processing_mode static --precompute_static (the
+    CLI's pipeline choices), then ``serving.main`` on that run over
+    ``n_images`` synthetic DNGs: one record per file, the logits of
+    ``Predictor.from_run`` equal to the trained classifier's behind the
+    same pipeline, and no kernel of the port launched."""
+    from raw2logit_tpu_torch import serving
+    from raw2logit_tpu_torch.training import train as cli
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            (res,) = cli.main([
+                "--dataset", "SyntheticMicroscopy", "--processing_mode",
+                "static", "--precompute_static", "--test_run", "--epochs",
+                "1", "--batch_size", str(batch), "--n_splits", "1",
+                "--experiment_name", "static", "--run_name", "s"])
+            train_s = time.perf_counter() - t0
+            paths = write_dngs("dng", n_images, SEED + 1)
+            t0 = time.perf_counter()
+            out = serving.main([
+                "--experiment_name", "static", "--run_name", "s",
+                "--image_dir", "dng", "--dataset", "SyntheticMicroscopy",
+                "--processing_mode", "static", "--batch_size", str(batch),
+                "--out", "pred.jsonl"])
+            serve_s = time.perf_counter() - t0
+            seen = counts()
+            with open(out) as fh:
+                records = [json.loads(line) for line in fh]
+            logits = served_records(out, paths, 2)
+            raws = np.stack([load_image(p) / 65535.0 for p in paths])
+            pred = Predictor.from_run("static", "s",
+                                      dataset_name="SyntheticMicroscopy",
+                                      processing_mode="static")
+            metrics = res["run"].read_metrics()
+        finally:
+            os.chdir(cwd)
+    served = pred(raws).cpu().numpy()
+    stats = dataset_stats("SyntheticMicroscopy")
+    mean, std = (torch.tensor(stats[k], device=device).reshape(3, 1, 1)
+                 for k in ("mean", "std"))
+    clf = res["state"].classifier.eval()
+    with torch.no_grad():
+        x = torch.as_tensor(raws, dtype=torch.float32, device=device)
+        trained = clf((static_pipeline()(x) - mean) / std).cpu().numpy()
+    err = float(np.abs(served - trained).max())
+    err_records = float(np.abs(logits - trained).max())
+    emit({"phase": "static_cli", "train_seconds": train_s,
+          "serve_seconds": serve_s, "images": n_images, "records":
+          len(records), "val_accuracy": [m["val_accuracy"] for m in metrics
+                                         if "val_accuracy" in m],
+          "from_run_vs_trained_max_abs": err,
+          "records_vs_trained_max_abs": err_records, "tol": LOGIT_TOL,
+          "launches": seen, "preds": [r["pred"] for r in records][:8]})
+    check(seen == launches(), f"the static flow launched {seen}")
+    check(err <= LOGIT_TOL and err_records <= LOGIT_TOL,
+          f"from_run logits against the trained classifier {err}, "
+          f"{err_records}")
+
+
+def phase_static_profile(device, runners, calls=5):
+    """Device time by kernel and the device's idle share of each static
+    train step (``phase_static_times``' runners): no kernel of the port
+    in the profile."""
+    for (what, b), run in runners.items():
+        kernels, busy, wall_ms = profile_calls(run, None, calls)
+        ours = {name: sum(k[0] for k in kernels if key in k[1])
+                for name, key in PROFILE_KEYS.items()}
+        ours = {name: ms for name, ms in ours.items() if ms > 0}
+        emit({"phase": "profile", "what": what, "batch": b,
+              "wall_ms": wall_ms, "device_busy_ms": busy,
+              "kernel_ms_sum": sum(k[0] for k in kernels),
+              "device_idle_share": 1 - busy / wall_ms,
+              "port_kernels_device_ms": ours,
+              "top_kernels_ms": [[k[1][:70], k[0], k[2]]
+                                 for k in kernels[:15]]})
+        check(busy > 0 and not ours, f"the {what} profile shows device "
+                                     f"time and no port kernel: {ours}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    started = time.perf_counter()
+    seconds = {}
+
+    def lap(what):
+        """The seconds since the last lap, kept under ``what``."""
+        seconds[what] = time.perf_counter() - started - sum(seconds.values())
+
     smi, kind = phase_device()
     phase_build()
+    lap("device_and_build")
     max_err = {"fused_isp_fwd": phase_kernel_vs_plain(device),
                **phase_train_kernels_vs_plain(device)}
     max_err["ssim_aux"] = phase_ssim_kernel_vs_plain(device)
     max_err.update(phase_stem_kernels_vs_plain(device))
+    lap("kernels_vs_plain")
     serve_launches, pred = phase_serve(device)
     path_launches = {"fused_isp_fwd": serve_launches}
     main_path, recompute = phase_train(device)
@@ -1976,6 +2366,7 @@ def main():
     path_launches.update({n: stem_main[n] for n in STEM_KERNELS})
     _, pred_stem = phase_stem_serve(device)
     phase_bn(device)
+    lap("parametrized_paths")
     batches = (SERVE_BATCH, BIG_BATCH)
     trains = {b: train_runner(device, b) for b in batches}
     trains_stem = {b: train_runner(device, b, stem_kernel=True)
@@ -1985,6 +2376,18 @@ def main():
                        trains_stem)
     device_ms = phase_profile(device, pred, trains, advs, pred_stem,
                               trains_stem)
+    del pred, trains, advs, pred_stem, trains_stem
+    lap("times_and_profile")
+    # the static ISP's path, after the parametrized paths' measurements
+    phase_static_gates(device)
+    lap("static_gates")
+    phase_static_cli(device)
+    lap("static_cli")
+    phase_static_precompute(device)
+    lap("static_precompute")
+    phase_static_profile(device, phase_static_times(device))
+    lap("static_times_and_profile")
+    emit({"phase": "seconds", **seconds})
     entries = []
     for name, (replaces, source) in KERNELS.items():
         r = rows[SERVE_BATCH]["kernels"][name]

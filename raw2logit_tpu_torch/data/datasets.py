@@ -46,6 +46,13 @@ DATASET_STATS = {
 }
 
 
+def dataset_stats(name):
+    """The RGB normalisation statistics of a dataset name: a synthetic set
+    takes its real counterpart's, an unknown name Microscopy's."""
+    return (DATASET_STATS.get(name.replace("Synthetic", ""))
+            or DATASET_STATS["Microscopy"])
+
+
 def load_image(path):
     """Decode one image to a float32 numpy array (values NOT normalised).
 

@@ -3,3 +3,5 @@
 from raw2logit_tpu_torch.isp.batchnorm import TorchBatchNorm  # noqa: F401
 from raw2logit_tpu_torch.isp.parametrized import (  # noqa: F401
     ParametrizedProcessing)
+from raw2logit_tpu_torch.isp.static import (  # noqa: F401
+    StaticPipeline, static_process)

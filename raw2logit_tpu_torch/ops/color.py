@@ -1,4 +1,4 @@
-"""Pointwise colour ops: white balance, CCM, YUV, gamma (port of
+"""Pointwise colour ops: white balance, CCM, YUV, gammas (port of
 ``raw2logit_tpu/ops/color.py``).
 
 All ops take NCHW ``(B, 3, H, W)`` (or ``(3, H, W)``) float tensors: the
@@ -40,6 +40,12 @@ def rgb_to_yuv(rgb):
 
 def yuv_to_rgb(yuv):
     return _mix(yuv, constants.M_YUV_2_RGB)
+
+
+def adjust_gamma(img, gamma):
+    """Static-pipeline gamma: ``img ** (1 / gamma)``, after the caller's
+    clip to [0, 1]."""
+    return img ** (1.0 / gamma)
 
 
 def clip_gamma_exp(img, gamma):

@@ -1,11 +1,17 @@
-"""Batch inference (port of ``raw2logit_tpu/serving.py::Predictor``).
+"""Batch inference (port of ``raw2logit_tpu/serving.py``).
 
 Serves raw (B, H, W) float32 mosaics -> logits (B, classes), or sigmoid
-masks for segmentation, from modules that already hold their weights.
-Restoring a training run's checkpoints (``from_run`` and the CLI of the
-JAX package) follows with the port of the checkpoint module.
+masks for segmentation: from modules that already hold their weights, or
+from a training run of the port's CLI (``Predictor.from_run``: the run's
+checkpoint files and, for a static run, its pipeline rebuilt from the
+run's ``sp_*`` arguments). The CLI serves a run on a folder of images:
+
+    python -m raw2logit_tpu_torch.serving --experiment_name e \
+        --run_name r --image_dir dngs/ [--processing_mode static] \
+        [--device cpu]
 """
 
+import argparse
 import json
 import os
 
@@ -28,10 +34,79 @@ class Predictor:
         self.device = resolve_device(device)
         self.task = task
         self.classes = classes
+        self.state_dict = None  # from_run: the run's state_dict.json
         self.processor = (processor.to(self.device).eval()
                           if processor is not None else None)
         self.classifier = classifier.to(self.device).eval()
         self.process_fn = process_fn
+
+    @classmethod
+    def from_run(cls, experiment_name, run_name, dataset_name="Microscopy",
+                 network="resnet18", processing_mode="parametrized",
+                 image_size=256, use_kernel=True, root="results/runs",
+                 device=None, **dataset_kwargs):
+        """Build from a training run's checkpoints (the run store's layout,
+        ``tracking.get_model_by_name``) on ``device`` (None means cuda, and
+        raises when CUDA is missing).
+
+        ``processing_mode='parametrized'`` loads the run's processor file
+        into ``ParametrizedProcessing`` (with the fused kernels unless
+        ``use_kernel=False``); ``'static'`` rebuilds the static pipeline
+        and the normalisation from the run's ``sp_*`` arguments."""
+        from raw2logit_tpu_torch.data.datasets import (dataset_stats,
+                                                       get_dataset)
+        from raw2logit_tpu_torch.isp import (ParametrizedProcessing,
+                                             StaticPipeline)
+        from raw2logit_tpu_torch.models import resnet_model
+        from raw2logit_tpu_torch.tracking.run import get_model_by_name
+        from raw2logit_tpu_torch.training import checkpoint as ckpt
+
+        device = resolve_device(device)
+        state_dict, ckpts = get_model_by_name(experiment_name, run_name,
+                                              root=root)
+        dataset = get_dataset(dataset_name, **dataset_kwargs)
+        if dataset.task != "classification":
+            raise NotImplementedError(
+                "serving a segmentation run comes with the segmentation "
+                "slice of the port (ROADMAP Queue 1 item 7)")
+
+        processor = process_fn = None
+        if processing_mode == "parametrized":
+            if not ckpts["processor"]:
+                raise FileNotFoundError(
+                    f"run {experiment_name}/{run_name} has no processor "
+                    "checkpoint: was it trained with processing_mode="
+                    "'parametrized'? (pass processing_mode='static' to "
+                    "serve a static-pipeline run)")
+            processor = ParametrizedProcessing(
+                camera_parameters=dataset.camera_parameters,
+                image_size=image_size, use_kernel=use_kernel, device=device)
+            ckpt.load_module(ckpts["processor"], processor)
+        elif processing_mode == "static":
+            # the training-time input pipeline: the static ISP and
+            # (x - mean) / std, as the CLI's static mode runs it
+            sd = state_dict or {}
+            pipe = StaticPipeline(
+                camera_parameters=dataset.camera_parameters,
+                debayer=sd.get("sp_debayer", "bilinear"),
+                sharpening=sd.get("sp_sharpening", "sharpening_filter"),
+                denoising=sd.get("sp_denoising", "gaussian_denoising"))
+            stats = dataset_stats(dataset_name)
+            mean, std = (torch.tensor(stats[k], dtype=torch.float32,
+                                      device=device).reshape(3, 1, 1)
+                         for k in ("mean", "std"))
+
+            def process_fn(raw):
+                return (pipe(raw) - mean) / std
+
+        classifier = resnet_model(network,
+                                  fc_out_features=len(dataset.classes),
+                                  device=device)
+        ckpt.load_module(ckpts["classifier"], classifier)
+        pred = cls(processor, classifier, process_fn=process_fn,
+                   classes=getattr(dataset, "classes", None), device=device)
+        pred.state_dict = state_dict
+        return pred
 
     def __call__(self, raw_batch):
         """raw (B, H, W) numpy array or tensor -> logits (classification)
@@ -78,3 +153,33 @@ class Predictor:
                                "mask_pixels": int((o > 0.5).sum())}
                     fh.write(json.dumps(rec) + "\n")
         return out_path
+
+
+def main(argv=None):
+    """Serve a training run on a folder of images; writes the predictions
+    JSONL and returns its path."""
+    p = argparse.ArgumentParser(description="batch inference")
+    p.add_argument("--experiment_name", required=True)
+    p.add_argument("--run_name", required=True)
+    p.add_argument("--image_dir", required=True)
+    p.add_argument("--dataset", default="Microscopy")
+    p.add_argument("--network", default="resnet18")
+    p.add_argument("--processing_mode", default="parametrized")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--out", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="where to serve: cuda (the default; raises without "
+                        "CUDA) or cpu")
+    args = p.parse_args(argv)
+    pred = Predictor.from_run(
+        args.experiment_name, args.run_name, dataset_name=args.dataset,
+        network=args.network, processing_mode=args.processing_mode,
+        device=None if args.device == "cuda" else args.device)
+    out = pred.predict_dir(args.image_dir, batch_size=args.batch_size,
+                           out_path=args.out)
+    print(f"predictions -> {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,10 @@ Runs live under ``<root>/<experiment>/<run_name>/`` with the JAX
 package's layout: ``params.json``, ``metrics.jsonl`` (one JSON record per
 ``log_metrics``), ``state_dict.json``, and artifact directories such as
 ``checkpoints/``. A child run (one per fold) is a directory inside its
-parent's. Mirroring to an MLflow server (``tracking_uri``) comes with the
-tracking slice of the port (ROADMAP Queue 1 item 11) and raises here.
+parent's. ``find_run``, ``list_runs`` and ``get_model_by_name`` look
+recorded runs up by name. Mirroring to an MLflow server
+(``tracking_uri``) comes with the tracking slice of the port (ROADMAP
+Queue 1 item 11) and raises here.
 """
 
 import json
@@ -97,3 +99,59 @@ class Run:
             return []
         with open(path) as fh:
             return [json.loads(line) for line in fh]
+
+
+def start_run(experiment_name, run_name, **kw):
+    return Run(experiment_name, run_name, **kw)
+
+
+def find_run(experiment_name, run_name, root="results/runs"):
+    """The recorded run ``<root>/<experiment>/<run>``; raises
+    FileNotFoundError when it does not exist."""
+    d = os.path.join(root, _safe(experiment_name), _safe(run_name))
+    if not os.path.isdir(d):
+        raise FileNotFoundError(f"run not found: {d}")
+    return Run(experiment_name, run_name, root=root)
+
+
+def list_runs(experiment_name, root="results/runs"):
+    """The run names recorded under an experiment, sorted."""
+    d = os.path.join(root, _safe(experiment_name))
+    if not os.path.isdir(d):
+        raise FileNotFoundError(f"experiment not found: {d}")
+    return sorted(name for name in os.listdir(d)
+                  if os.path.isdir(os.path.join(d, name)))
+
+
+def get_model_by_name(experiment_name, run_name, root="results/runs",
+                      fold=0):
+    """A run's state dict and per-component checkpoint files, by names.
+    The checkpoints live in the per-fold child run ``<run>_<fold>``: pass
+    the parent's name and the fold, or the child's name.
+
+    Returns (state_dict, {"processor": path or None, "classifier": path
+    or None}): the port's own ``checkpoints/{processor,classifier}.pt``
+    as the training CLI writes them (a static run has no processor file).
+    The JAX package's orbax checkpoints are not read; weights cross over
+    through ``raw2logit_tpu_torch.convert``."""
+    run = find_run(experiment_name, run_name, root=root)
+    child = os.path.join(run.dir, f"{_safe(run_name)}_{fold}")
+    if (not os.path.isdir(os.path.join(run.dir, "checkpoints"))
+            and os.path.isdir(child)):
+        run.dir = child
+    sd_path = os.path.join(run.dir, "state_dict.json")
+    state_dict = {}
+    if os.path.exists(sd_path):
+        with open(sd_path) as fh:
+            state_dict = json.load(fh)
+    ckpts = {}
+    for comp in ("processor", "classifier"):
+        path = os.path.join(run.dir, "checkpoints", f"{comp}.pt")
+        ckpts[comp] = path if os.path.isfile(path) else None
+    return state_dict, ckpts
+
+
+def display_run_info(run):
+    """Print where a run's artifacts live."""
+    print(f"experiment '{run.experiment_name}' > run '{run.run_name}'")
+    print(f"artifacts at {os.path.abspath(run.dir)}")

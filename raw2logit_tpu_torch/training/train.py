@@ -8,10 +8,12 @@ dataset -> k-fold -> per fold: processor and classifier -> (adversarial
 setup) -> train and validation epochs -> checkpoints, recorded in the
 local run store under ``results/runs/<experiment>/<run>/<run>_<fold>/``.
 The parser keeps the JAX package's whole flag surface and adds
-``--device`` (``cuda`` unless given; raises without CUDA). It runs the
-parametrized ISP with classification, plain, frozen or adversarial; the
-options that later slices port raise ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that ports them.
+``--device`` (``cuda`` unless given; raises without CUDA). It runs
+classification with the parametrized ISP (plain, frozen or adversarial)
+or the static ISP (``--processing_mode static``: the pipeline and the
+normalisation in every step, or once over the dataset with
+``--precompute_static``); the options that later slices port raise
+``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
 """
 
 import argparse
@@ -25,8 +27,10 @@ import numpy as np
 import torch
 
 from raw2logit_tpu_torch import resolve_device
-from raw2logit_tpu_torch.data import Loader, Subset, get_dataset, k_fold
-from raw2logit_tpu_torch.isp import ParametrizedProcessing
+from raw2logit_tpu_torch.data import (Loader, PrecomputedRGBView, Subset,
+                                      dataset_stats, get_dataset, k_fold,
+                                      precompute_pipeline_rgb)
+from raw2logit_tpu_torch.isp import ParametrizedProcessing, StaticPipeline
 from raw2logit_tpu_torch.models import resnet_model
 from raw2logit_tpu_torch.tracking import Run
 from raw2logit_tpu_torch.training import checkpoint as ckpt
@@ -134,8 +138,10 @@ def build_parser():
                    help="the fused ISP kernels (parametrized mode, no stage "
                         "tracking): ParametrizedProcessing(use_kernel=True)")
     p.add_argument("--precompute_static", action="store_true",
-                   help="static mode only: run the static pipeline over the "
-                        "dataset once")
+                   help="static mode only: run the static pipeline and the "
+                        "normalisation over the dataset once and train the "
+                        "classifier on the cached RGB (the same math: "
+                        "augmentation applies after processing either way)")
     p.add_argument("--weight_decay", type=float, default=0.0,
                    help="coupled L2 weight decay (torch.optim.Adam "
                         "semantics)")
@@ -165,9 +171,6 @@ def _refuse_unported(args):
     """Raise NotImplementedError for an option that a later slice of the
     port brings, naming the ROADMAP Queue 1 item."""
     unported = (
-        (args.processing_mode == "static" or args.precompute_static,
-         "--processing_mode static and --precompute_static come with the "
-         "static-ISP slice (ROADMAP Queue 1 item 6)"),
         (args.processing_mode in ("neural_network", "none"),
          f"--processing_mode {args.processing_mode} comes with the neural "
          f"and identity ISP slice (ROADMAP Queue 1 item 8)"),
@@ -194,7 +197,37 @@ def _refuse_unported(args):
             raise NotImplementedError(why)
 
 
+def _static_pipeline(args, dataset):
+    return StaticPipeline(camera_parameters=dataset.camera_parameters,
+                          debayer=args.sp_debayer,
+                          sharpening=args.sp_sharpening,
+                          denoising=args.sp_denoising)
+
+
+class _StaticAsModule(torch.nn.Module):
+    """The static pipeline under ``no_grad``, then (rgb - mean) / std: the
+    processor of static mode. It has no parameters and no state dict
+    entries (mean and std are buffers that are not saved)."""
+
+    def __init__(self, pipeline, mean, std, device):
+        super().__init__()
+        self.pipeline = pipeline
+        for name, v in (("mean", mean), ("std", std)):
+            self.register_buffer(name, torch.tensor(
+                v, dtype=torch.float32, device=device).reshape(3, 1, 1),
+                persistent=False)
+
+    def forward(self, raw):
+        with torch.no_grad():
+            rgb = self.pipeline(raw)
+        return (rgb - self.mean) / self.std, {}
+
+
 def build_processor(args, dataset, image_size, device):
+    if args.processing_mode == "static":
+        stats = dataset_stats(args.dataset)
+        return _StaticAsModule(_static_pipeline(args, dataset),
+                               stats["mean"], stats["std"], device)
     return ParametrizedProcessing(
         camera_parameters=dataset.camera_parameters,
         batch_norm_output=True,
@@ -245,6 +278,22 @@ def run_train(args):
                         train_size=args.train_size)
     image_size = dataset[0][0].shape[0]
 
+    precompute = (args.processing_mode == "static"
+                  and args.precompute_static)
+    if precompute:
+        # the deterministic ISP and the normalisation, once over the
+        # dataset; every fold then trains the classifier on the cached RGB
+        # (in-graph static mode runs pipeline -> normalisation ->
+        # augmentation -> classifier in this order too)
+        stats = dataset_stats(args.dataset)
+        rgb = precompute_pipeline_rgb(
+            dataset, _static_pipeline(args, dataset),
+            batch_size=args.batch_size, device=device)
+        rgb = ((rgb - np.asarray(stats["mean"], np.float32)[:, None, None])
+               / np.asarray(stats["std"], np.float32)[:, None, None])
+        dataset = PrecomputedRGBView(dataset, rgb)
+        print(f"precomputed static ISP: {rgb.shape} cached")
+
     # cosine horizon: steps per fold (the train loader drops the ragged
     # tail)
     n_train = (args.batch_size if args.test_run
@@ -254,7 +303,8 @@ def run_train(args):
         task=dataset.task, lr=args.lr, lr_schedule=args.lr_schedule,
         total_steps=steps_per_epoch * args.epochs,
         weight_decay=args.weight_decay, augmentation=args.augmentation,
-        freeze_processor=args.freeze_processor,
+        freeze_processor=(args.freeze_processor
+                          or args.processing_mode == "static"),
         freeze_classifier=args.freeze_classifier,
         adv_training=args.adv_training, adv_aux_weight=args.adv_aux_weight,
         adv_aux_loss=args.adv_aux_loss,
@@ -267,7 +317,9 @@ def run_train(args):
 
     for k_iter, (train_indices, valid_indices) in enumerate(idxs_kfold):
         print(f"K_fold subset: {k_iter + 1}/{args.n_splits}")
-        processor = build_processor(args, dataset, image_size, device)
+        # with the precompute the ISP has already run
+        processor = (None if precompute
+                     else build_processor(args, dataset, image_size, device))
         classifier = build_classifier(args, dataset, device, args.seed)
 
         state_dict = dict(vars(args))
@@ -372,9 +424,10 @@ def run_train(args):
 
         if args.log_model:
             # per-component files, what --processor_uri / --classifier_uri
-            # read
-            ckpt.save_module(processor, os.path.join(ckpt_root,
-                                                     "processor.pt"))
+            # read; a static run has no processor file
+            if processor is not None and processor.state_dict():
+                ckpt.save_module(processor, os.path.join(ckpt_root,
+                                                         "processor.pt"))
             ckpt.save_module(classifier, os.path.join(ckpt_root,
                                                       "classifier.pt"))
 

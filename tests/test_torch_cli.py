@@ -290,7 +290,7 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--processing_mode", "static"], "item 6"),
+    (["--processing_mode", "none"], "item 8"),
     (["--processing_mode", "neural_network"], "item 8"),
     (["--track_processing"], "item 11"),
     (["--classifier_pretrained"], "item 11"),
@@ -304,6 +304,48 @@ def test_cli_refuses_unported_options(flags, match, tmp_path, monkeypatch):
     args = ["--dataset", "SyntheticMicroscopy", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(args + flags)
+
+
+def test_cli_static_mode_with_and_without_precompute(tmp_path, monkeypatch,
+                                                     tiny_dataset):
+    """--processing_mode static, with the pipeline in every step and with
+    --precompute_static, trains to the same classifier (the same split,
+    augmentation draws and update math), as tests/test_training.py holds
+    the JAX package's two paths; neither run trains or saves a
+    processor, and the run records the pipeline's choices."""
+    monkeypatch.chdir(tmp_path)
+
+    def train(extra, name):
+        (res,) = cli.main([
+            "--dataset", "SyntheticMicroscopy", "--processing_mode",
+            "static", "--sp_debayer", "malvar2004", "--sp_denoising",
+            "median_denoising", "--epochs", "2", "--batch_size", "4",
+            "--n_splits", "1", "--lr", "1e-3", "--augmentation", "weak",
+            "--device", "cpu", "--experiment_name", "pc", "--run_name",
+            name, *extra])
+        return res
+
+    in_graph = train([], "pc0")
+    pre = train(["--precompute_static"], "pc1")
+    flat = [torch.cat([p.detach().flatten() for p in
+                       r["state"].classifier.parameters()]).numpy()
+            for r in (in_graph, pre)]
+    diff = np.abs(flat[1] - flat[0])
+    # the tolerance of tests/test_training.py: Adam turns a rounding-level
+    # gradient difference on a near-zero leaf into a +-lr update
+    assert np.max(diff) < 5.0 * 1e-3, np.max(diff)
+    assert np.mean(diff < 1e-4) > 0.999
+    assert pre["state"].processor is None
+    assert list(in_graph["state"].processor.parameters()) == []
+    assert in_graph["state"].step == pre["state"].step == 2
+    for r in (in_graph, pre):
+        assert os.listdir(os.path.join(r["run"].dir, "checkpoints")) == [
+            "classifier.pt"]
+        with open(os.path.join(r["run"].dir, "state_dict.json")) as fh:
+            sd = json.load(fh)
+        assert (sd["sp_debayer"], sd["sp_sharpening"], sd["sp_denoising"]) \
+            == ("malvar2004", "sharpening_filter", "median_denoising")
+        assert any("val_accuracy" in m for m in r["run"].read_metrics())
 
 
 def test_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch, tiny_dataset):
