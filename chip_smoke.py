@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and drift-forensics paths, the
-fused ResNet stem, and the static ISP's drift-synthesis path, on one NVIDIA
-GPU and check them.
+fused ResNet stem, the static ISP's drift-synthesis path, segmentation and
+the neural and identity ISPs, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -115,10 +115,39 @@ line):
    choices, and menon2007) and on precomputed RGB at B=32 and B=256, its
    CUDA-event ms with the launch counts at 0 before and after, its device
    time by kernel and idle share (no port kernel in the profile).
-20. the ``kernels`` line, then the ``ok`` line.
+20. seg train: ``make_train_step(task="segmentation")`` with the CLI's
+   segmenter (resnet34 U-Net++, depth 5, decoder (256, 128, 64, 32, 16))
+   behind the drone ISP on 256x256 SyntheticRawSegmentation mosaics: one
+   step through the ISP kernels against one through the plain ISP from
+   identical weights at B=8 (loss, IoU, U-Net++ gradients as one vector,
+   running statistics), the kernel step's ISP gradients against the
+   float64 plain backward on its own cotangent; then 3 kernel-path steps
+   at B=32, counting launches (one training forward and one residual
+   backward per step), every ISP parameter moved.
+21. seg serve: ``Predictor.predict_dir`` with that pair on 64 synthetic
+   16-bit DNGs, one serving launch per batch, masks against the plain
+   ISP's within ``SEG_MASK_TOL``.
+22. neural and identity: ``NNProcessing`` at its published widths in
+   float32 on the card against itself in float64 on the card, eval and
+   train mode, at B=4 (``NN_F64_REL``); ``RawToRGB`` on the card against
+   the CPU (``IDENTITY_TOL``); one neural-ISP train step (ResNet-18
+   behind it) that launches no kernel of the port and moves every
+   parameter and running statistic.
+23. seg and neural cli: a 1-epoch --test_run of SyntheticDrone with the
+   ISP kernels through the training CLI, ``serving.main`` on that run over
+   64 DNGs (``Predictor.from_run``'s masks equal to the trained modules'),
+   then --test_run of --processing_mode neural_network and none.
+24. seg times: CUDA-event ms, launches, peak device memory, device ms by
+   kernel and idle share (a profile of more calls) of each step of
+   ``SEG_TIMES``: the segmentation train step and serving at B=32 and at
+   the largest batch that fits (the train step at 256 with ``remat``),
+   and the neural and identity ISP train steps at B=32 and B=256.
+25. the ``kernels`` line (with each kernel's launches on the segmentation
+   path), then the ``ok`` line.
 """
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -129,12 +158,15 @@ import time
 import numpy as np
 import torch
 
-from raw2logit_tpu_torch.data import (MICROSCOPY_CAMERA_PARAMS,
+from raw2logit_tpu_torch.data import (DRONE_CAMERA_PARAMS,
+                                      MICROSCOPY_CAMERA_PARAMS,
                                       ArrayDataset,
                                       SyntheticRawClassification,
+                                      SyntheticRawSegmentation,
                                       dataset_stats, load_image,
                                       precompute_pipeline_rgb, write_dng)
-from raw2logit_tpu_torch.isp import (ParametrizedProcessing, StaticPipeline,
+from raw2logit_tpu_torch.isp import (NNProcessing, ParametrizedProcessing,
+                                     RawToRGB, StaticPipeline,
                                      TorchBatchNorm, static_process)
 from raw2logit_tpu_torch.kernels import (
     PARAM_NAMES, batch_stats, bn_backward_coef, bn_fold, bn_input_cotangent,
@@ -152,7 +184,7 @@ from raw2logit_tpu_torch.ops.color import (adjust_gamma, colour_correction,
 from raw2logit_tpu_torch.ops.demosaic import DEMOSAIC_FNS, menon_decision
 from raw2logit_tpu_torch.ops.filters import full_float32
 from raw2logit_tpu_torch.ops.mosaic import subtract_black_level_cfa
-from raw2logit_tpu_torch.models import resnet_model
+from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
                                           make_train_step)
@@ -375,6 +407,37 @@ STATIC_CHAMBOLLE_EVERY = 4
 # float64, at most MENON_FLIP_SHARE of the sites may flip, and at least
 # MENON_MIN_KEPT of the batch's images must stay in the gates.
 MENON_TIE_REL, MENON_FLIP_SHARE, MENON_MIN_KEPT = 1e-5, 1e-5, 0.75
+# The neural ISP (no kernel of the port on its path) in float32 on the
+# card against the same module in float64 on the card, max |difference|
+# over max |float64|: ten times what the port's CPU run reads at the same
+# shape (B = 4, 256x256, 8.4e-7 in eval and 1.08e-6 in train mode,
+# tests/test_torch_neural_isp.py); the identity ISP on the card against
+# the CPU, abs.
+NN_F64_REL, IDENTITY_TOL = 1e-5, 1e-7
+# Segmentation (the CLI's segmenter: a resnet34 U-Net++, depth 5, decoder
+# (256, 128, 64, 32, 16), one class, behind the drone ISP, on 256x256
+# SyntheticRawSegmentation mosaics): the kernel path against the plain
+# path at SEG_BATCH, then SEG_STEPS kernel-path steps at SERVE_BATCH. The
+# two paths' IoU within SEG_IOU_TOL (a pixel whose probability crosses
+# 0.5 moves it by 1 / union, about 2e-6 at B = 8), served masks within
+# SEG_MASK_TOL abs; loss, U-Net++ gradients and running statistics as
+# the classification step's (LOSS_TOL, CLF_GRAD_TOL, STATS_TOL).
+SEG_BATCH, SEG_STEPS = 8, 3
+SEG_IOU_TOL, SEG_MASK_TOL = 1e-4, 1e-4
+# The steps timed: segmentation at B = 32 and at the largest batch that
+# fits on the card (the train step peaks at 45 GiB at 128 and runs out
+# of memory at 256, which fits with ``remat``; serving peaks near 41 GiB
+# at 512, and 1024 would need about twice that); the neural and identity
+# ISP steps (ResNet-18 as built behind them) at B = 32 and B = 256. At
+# B = 32, the mean of 10 calls after 2 warm-ups and a profile of 2 more;
+# above, where a call takes about a second, of BIG_ITERS and 1.
+SEG_TIMES = (("seg_train", SERVE_BATCH), ("seg_train", 128),
+             ("seg_train_remat", BIG_BATCH), ("seg_serve", SERVE_BATCH),
+             ("seg_serve", 512), ("neural_train", SERVE_BATCH),
+             ("neural_train", BIG_BATCH), ("identity_train", SERVE_BATCH),
+             ("identity_train", BIG_BATCH))
+BIG_ITERS = 3
+NN_BATCH = 4
 
 
 def emit(obj):
@@ -478,14 +541,21 @@ def classifier(device, seed=SEED):
     gen = torch.Generator(device).manual_seed(seed)
     clf = resnet_model("resnet18", fc_out_features=9, device=device,
                        generator=gen)
-    with torch.no_grad():
-        for m in clf.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.0, generator=gen)
-                m.bias.normal_(0.0, 0.1, generator=gen)
-                m.running_mean.normal_(0.0, 0.1, generator=gen)
-                m.running_var.uniform_(0.5, 2.0, generator=gen)
-    return clf.eval()
+    return perturb_bns(clf, gen).eval()
+
+
+@torch.no_grad()
+def perturb_bns(module, gen):
+    """Every affine batch norm of ``module`` with scales U(0.5, 1), biases
+    and running means N(0, 0.1) and running variances U(0.5, 2) from
+    ``gen``; returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d) and m.affine:
+            m.weight.uniform_(0.5, 1.0, generator=gen)
+            m.bias.normal_(0.0, 0.1, generator=gen)
+            m.running_mean.normal_(0.0, 0.1, generator=gen)
+            m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return module
 
 
 def test_mosaics(shape, seed=SEED):
@@ -1229,11 +1299,12 @@ def phase_adversarial(device, batch=SERVE_BATCH, steps=ADV_STEPS):
     return main
 
 
-def write_dngs(img_dir, n_images, seed, size=SIZE):
-    """``n_images`` 16-bit DNGs of SyntheticRawClassification mosaics in a
-    new ``img_dir``; returns their paths in the order serving reads
-    them."""
-    ds = SyntheticRawClassification(n=n_images, h=size, w=size, seed=seed)
+def write_dngs(img_dir, n_images, seed, size=SIZE, dataset=None):
+    """``n_images`` 16-bit DNGs of SyntheticRawClassification mosaics (or
+    of the class ``dataset``) in a new ``img_dir``; returns their paths in
+    the order serving reads them."""
+    ds = (dataset or SyntheticRawClassification)(n=n_images, h=size, w=size,
+                                                 seed=seed)
     os.makedirs(img_dir)
     for i in range(n_images):
         write_dng(os.path.join(img_dir, f"img_{i:03d}.dng"),
@@ -1878,22 +1949,65 @@ def busy_ms(prof, calls):
     return total / 1e3 / calls
 
 
-def profile_calls(fn, arg, calls):
+def trace_losses(prof, launched):
+    """What the profiler's trace lost, {} if nothing: each port kernel
+    whose device records differ in number from ``launched``, its launches
+    counted during the trace; on the card, every device record (a trace
+    that holds none). With the loss, the ms from the first host event to
+    the first device record and from the last device record to the last
+    host event, which say where in the trace the records went missing."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    recorded = {name: sum(1 for e in device if key in e.name)
+                for name, key in PROFILE_KEYS.items()}
+    lost = {name: [n, recorded[name]] for name, n in launched.items()
+            if n != recorded[name]}
+    if not lost and (device or not torch.cuda.is_available()):
+        return {}
+    host = [e.time_range for e in events if e.device_type != DeviceType.CUDA]
+    edges = ([(min(e.time_range.start for e in device)
+               - min(r.start for r in host)) / 1e3,
+              (max(r.end for r in host)
+               - max(e.time_range.end for e in device)) / 1e3]
+             if device and host else None)
+    return {"port_kernels_launched_recorded": lost,
+            "device_records": len(device), "edge_gaps_ms": edges}
+
+
+# The profiler now and then drops device records (a port kernel, once a
+# whole session's): each trace stays open PROFILE_SETTLE_S after the
+# device is done, and a trace that lost records is taken again, at most
+# PROFILE_ATTEMPTS times in all.
+PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
+
+
+def profile_calls(fn, arg, calls, warmups=3):
     """Device ms by kernel per call of ``fn(arg)`` (torch.profiler, after
-    3 warm-up calls), the device's busy ms per call and the wall ms per
-    call."""
+    ``warmups`` warm-up calls), the device's busy ms per call and the wall
+    ms per call, from a trace that lost no record (``trace_losses``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmups):
         fn(arg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn(arg)
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        before = counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(arg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+            time.sleep(PROFILE_SETTLE_S)
+        launched = {name: n - before[name] for name, n in counts().items()}
+        lost = trace_losses(prof, launched)
+        if not lost:
+            break
+        emit({"phase": "profile_trace_lost_records", "attempt": attempt,
+              **lost})
+    check(not lost, f"{PROFILE_ATTEMPTS} traces lost records: {lost}")
     kernels = sorted(
         ((e.self_device_time_total / 1e3 / calls, e.key, e.count // calls)
          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
@@ -2332,6 +2446,402 @@ def phase_static_profile(device, runners, calls=5):
                                      f"time and no port kernel: {ours}")
 
 
+# --- segmentation, the neural and identity ISPs ----------------------------
+
+def seg_batch(device, batch, size=SIZE, seed=SEED):
+    """``batch`` SyntheticRawSegmentation mosaics and their masks, on the
+    device."""
+    ds = SyntheticRawSegmentation(n=batch, h=size, w=size, seed=seed)
+    items = [ds[i] for i in range(batch)]
+    return tuple(torch.as_tensor(np.stack(a), dtype=torch.float32,
+                                 device=device) for a in zip(*items))
+
+
+def seg_modules(device, use_kernel=True, seed=SEED, remat=False):
+    """The drone ISP as ``processor`` perturbs it, and the CLI's U-Net++
+    (resnet34, depth 5, decoder (256, 128, 64, 32, 16), one class, with
+    ``remat`` or not) seeded on the device."""
+    proc = processor(device, use_kernel, camera=DRONE_CAMERA_PARAMS,
+                     seed=seed)
+    net = UNetPlusPlus(remat=remat, device=device,
+                       generator=torch.Generator(device).manual_seed(seed))
+    return proc, net
+
+
+def mosaic_stats():
+    stats = dataset_stats("Microscopy")
+    return {"normalize_mosaic_mean": stats["mosaic_mean"],
+            "normalize_mosaic_std": stats["mosaic_std"]}
+
+
+def phase_seg_train(device, batch=SEG_BATCH, big=SERVE_BATCH,
+                    steps=SEG_STEPS, size=SIZE):
+    """A segmentation train step through the ISP kernels against one
+    through the plain ISP and one through the plain ISP in float64, from
+    identical weights, at ``batch``; the kernel step's ISP gradients held
+    to the float64 plain backward on that step's own cotangent; then
+    ``steps`` kernel-path steps at ``big``, counting launches. Returns
+    their launch counts.
+
+    Loss and IoU are held to the plain path's (LOSS_TOL, SEG_IOU_TOL). The
+    U-Net++ gradients (one vector) and the running statistics are held to
+    the float64 step within CLF_GRAD_TOL and STATS_TOL, or STEP_F64_FACTOR
+    times the float32 plain path's own distance from it, whichever is
+    larger, as phase_train holds its perturbed classifiers: at small
+    images the depth-5 U-Net++'s deepest batch norms normalise few values
+    (2x2 positions per image at 64x64) and amplify float32 rounding (the
+    two paths' gradients read 1.55e-3 apart at B = 2 there, 8.9e-5 at
+    B = 8, 256x256)."""
+    raw, y = seg_batch(device, batch, size)
+    proc, net = seg_modules(device)
+    params = proc.kernel_params()
+    cfg = TrainConfig(task="segmentation", lr=TRAIN_LR)
+    runs = {}
+    for name, use_kernel, dtype in (("kernel", True, torch.float32),
+                                    ("plain", False, torch.float32),
+                                    ("float64", False, torch.float64)):
+        p, c, state, step = train_copy(cfg, proc, net, use_kernel, dtype)
+        seen = capture_cotangent(p)
+        mets = step(state, raw.to(dtype), y.to(dtype))
+        runs[name] = ((grads_and_stats(p, c), float(mets["loss"])),
+                      float(mets["iou_score"]))
+        if name == "kernel":
+            g = seen["g"]
+        del p, c, state, step
+    agree = step_agreement(runs["kernel"][0], runs["plain"][0])
+    vs_f64 = {name: step_agreement(runs[name][0], runs["float64"][0])
+              for name in ("kernel", "plain")}
+    _, grads_64 = witness(raw, params, g)
+    isp_k = runs["kernel"][0][0][0]
+    wit = max(max_rel(isp_k[ISP_NAMES[k]].double(), grads_64[k], 1e-3)
+              for k in grads_64)
+    iou_err = abs(runs["kernel"][1] - runs["plain"][1])
+    keys = ("clf_grad_max_rel_err", "running_stats_max_rel_err")
+    emit({"phase": "seg_step_vs_plain", "batch": batch, "size": size,
+          "loss": runs["kernel"][0][1], "iou": runs["kernel"][1],
+          "iou_abs_err": iou_err, **agree,
+          "vs_float64": {name: {k: v[k] for k in keys}
+                         for name, v in vs_f64.items()},
+          "isp_grads_vs_float64_bwd_same_cotangent": wit,
+          "cotangent_abs_max": float(g.abs().max())})
+    check(agree["loss_abs_err"] <= LOSS_TOL, "segmentation loss")
+    check(iou_err <= SEG_IOU_TOL, f"segmentation IoU {iou_err}")
+    check(wit <= BWD_PARAM, f"the kernel step's ISP gradients vs the "
+                            f"float64 backward on its cotangent {wit}")
+    for key, tol, what in zip(keys, (CLF_GRAD_TOL, STATS_TOL),
+                              ("U-Net++ gradients", "running statistics")):
+        k_err, p_err = vs_f64["kernel"][key], vs_f64["plain"][key]
+        check(k_err <= max(tol, STEP_F64_FACTOR * p_err),
+              f"{what} vs the float64 step {k_err} (the plain path's "
+              f"{p_err})")
+    del runs, g, grads_64, isp_k
+
+    raw, y = seg_batch(device, big, size, seed=SEED + 1)
+    p, c, state, step = train_copy(cfg, proc, net)
+    before = {n: t.detach().clone() for n, t in p.named_parameters()}
+    reset_counts()
+    t0 = time.perf_counter()
+    mets = [step(state, raw, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    main = counts()
+    losses = [float(m["loss"]) for m in mets]
+    moved = {n: not torch.equal(before[n], t)
+             for n, t in p.named_parameters()}
+    emit({"phase": "seg_train", "batch": big, "steps": steps,
+          "seconds": seconds, "losses": losses,
+          "iou": [float(m["iou_score"]) for m in mets],
+          "isp_params_moved": moved, "launches": main})
+    check(all(np.isfinite(losses)), "finite segmentation losses")
+    check(all(moved.values()), f"every ISP parameter moved {moved}")
+    check(main == launches(fwd_train=steps, bwd_res=steps),
+          f"segmentation launches {main}")
+    return main
+
+
+def seg_masks(pred, raws, batch):
+    return torch.cat([pred(raws[i:i + batch]).cpu()
+                      for i in range(0, len(raws), batch)])
+
+
+def served_masks(out, paths, masks):
+    """The records of a segmentation predictions file: one per file in
+    ``paths``, in order, with the JAX package's fields, whose mask means
+    are those of ``masks``."""
+    with open(out) as fh:
+        records = [json.loads(line) for line in fh]
+    check([r["file"] for r in records] == paths, "one record per file")
+    check(all(sorted(r) == ["file", "mask_mean", "mask_pixels"]
+              for r in records), "segmentation record fields")
+    err = max(abs(r["mask_mean"] - float(m.double().mean()))
+              for r, m in zip(records, masks))
+    check(err <= 1e-6, f"record mask means vs the masks {err}")
+    return records
+
+
+def phase_seg_serve(device, n_images=SERVE_IMAGES, batch=SERVE_BATCH,
+                    size=SIZE):
+    """``Predictor.predict_dir`` with the drone ISP's kernel and the
+    U-Net++ on ``n_images`` synthetic 16-bit DNGs: one serving-kernel
+    launch per batch; the masks against a Predictor whose ISP takes the
+    plain path, within SEG_MASK_TOL. Returns the launches."""
+    proc, net = seg_modules(device)
+    pred = Predictor(proc, net, task="segmentation", device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_dngs(os.path.join(tmp, "dng"), n_images, SEED, size,
+                           dataset=SyntheticRawSegmentation)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pred.predict_dir(os.path.join(tmp, "dng"), batch_size=batch,
+                               out_path=os.path.join(tmp, "pred.jsonl"))
+        seconds = time.perf_counter() - t0
+        served = counts()
+        raws = np.stack([load_image(p) / 65535.0 for p in paths])
+        masks = seg_masks(pred, raws, batch)
+        records = served_masks(out, paths, masks)
+    plain_proc = copy.deepcopy(proc)
+    plain_proc.use_kernel = False
+    plain = Predictor(plain_proc, net, task="segmentation", device=device)
+    err = float((seg_masks(plain, raws, batch) - masks).abs().max())
+    n_batches = -(-n_images // batch)
+    emit({"phase": "seg_serve", "images": n_images, "batch": batch,
+          "seconds": seconds, "launches": served,
+          "mask_pixels": [r["mask_pixels"] for r in records][:8],
+          "max_abs_err_vs_plain": err, "tol": SEG_MASK_TOL})
+    check(masks.shape == (n_images, 1, size, size)
+          and bool(torch.isfinite(masks).all()), f"masks {masks.shape}")
+    check(served == launches(fwd=n_batches), f"segmentation serving "
+                                             f"launched {served}")
+    check(err <= SEG_MASK_TOL, f"masks vs the plain ISP {err}")
+    return served
+
+
+def phase_neural_identity(device, batch=NN_BATCH, size=SIZE):
+    """The neural ISP (published widths, the CLI's microscopy mosaic
+    statistics) in float32 on the card against itself in float64 on the
+    card, in eval and train mode (NN_F64_REL); the identity ISP on the
+    card against the CPU (IDENTITY_TOL); one neural-ISP train step
+    (ResNet-18 behind it, both with perturbed batch norms) in which no
+    kernel of the port launches, every parameter but the U-Net++ head's
+    bias moves (the output batch norm takes the mean out of its
+    gradient, which is rounding noise) and every running statistic
+    moves."""
+    raw, y = labelled_mosaics(device, batch, size)
+    gen = torch.Generator(device).manual_seed(SEED)
+    nn32 = NNProcessing(**mosaic_stats(), device=device, generator=gen)
+    nn64 = copy.deepcopy(nn32).double()
+    errs = {}
+    for mode, train in (("eval", False), ("train", True)):
+        with torch.no_grad():
+            got = nn32.train(train)(raw)[0]
+            want = nn64.train(train)(raw.double())[0]
+        errs[mode] = max_rel(got.double(), want)
+    ident = RawToRGB(**mosaic_stats(), device=device)
+    got, stages = ident(raw)
+    want, _ = RawToRGB(**mosaic_stats(), device="cpu")(raw.cpu())
+    ident_err = float((got.cpu() - want).abs().max())
+
+    nn_isp = perturb_bns(NNProcessing(**mosaic_stats(), device=device,
+                                      generator=gen), gen)
+    clf = classifier(device)
+    cfg = TrainConfig(lr=TRAIN_LR)
+    state = create_train_state(cfg, nn_isp, clf)
+    step = make_train_step(cfg, nn_isp, clf)
+    before = {f"{m}.{n}": t.detach().clone()
+              for m, mod in (("isp", nn_isp), ("clf", clf))
+              for n, t in mod.state_dict().items()
+              if t.is_floating_point()}
+    reset_counts()
+    loss = float(step(state, raw, y)["loss"])
+    seen = counts()
+    after = {f"{m}.{n}": t for m, mod in (("isp", nn_isp), ("clf", clf))
+             for n, t in mod.state_dict().items() if t.is_floating_point()}
+    head_bias = "isp.model.segmentation_head.bias"
+    still = sorted(n for n in before if n != head_bias
+                   and torch.equal(before[n], after[n]))
+    head_grad = float(nn_isp.model.segmentation_head.bias.grad.abs().max())
+    emit({"phase": "neural_identity", "batch": batch,
+          "nn_float32_vs_float64_max_rel": errs, "tol": NN_F64_REL,
+          "identity_card_vs_cpu_max_abs": ident_err,
+          "identity_tol": IDENTITY_TOL, "train_loss": loss,
+          "launches": seen, "unmoved": still,
+          "head_bias_grad_abs_max": head_grad})
+    check(all(e <= NN_F64_REL for e in errs.values()),
+          f"neural ISP float32 vs float64 {errs}")
+    check(got.shape == (batch, 3, size // 2, size // 2)
+          and list(stages) == ["demosaic"], "identity ISP output")
+    check(ident_err <= IDENTITY_TOL, f"identity ISP card vs CPU {ident_err}")
+    check(np.isfinite(loss), "finite neural-ISP loss")
+    check(seen == launches(), f"the neural-ISP step launched {seen}")
+    check(not still, f"parameters or statistics that did not move {still}")
+
+
+def phase_seg_cli(device, batch=16, n_images=SERVE_IMAGES):
+    """Through the CLIs on the card: a 1-epoch --test_run of
+    SyntheticDrone with the ISP kernels (``--use_pallas``), then
+    ``serving.main`` on that run over ``n_images`` synthetic DNGs (one
+    record per file, one serving launch per batch, the masks of
+    ``Predictor.from_run`` equal to the trained modules'); then
+    --test_run of --processing_mode neural_network and none on
+    SyntheticMicroscopy (metrics rows written)."""
+    from raw2logit_tpu_torch import serving
+    from raw2logit_tpu_torch.training import train as cli
+    common = ["--epochs", "1", "--batch_size", str(batch), "--n_splits",
+              "1", "--test_run", "--experiment_name", "seg"]
+    cwd = os.getcwd()
+    seconds, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            (seg,) = cli.main(common + ["--dataset", "SyntheticDrone",
+                                        "--use_pallas", "--run_name", "s"])
+            torch.cuda.synchronize()
+            seconds["segmentation"] = time.perf_counter() - t0
+            trained = counts()
+            paths = write_dngs("dng", n_images, SEED + 3,
+                               dataset=SyntheticRawSegmentation)
+            reset_counts()
+            out = serving.main([
+                "--experiment_name", "seg", "--run_name", "s",
+                "--image_dir", "dng", "--dataset", "SyntheticDrone",
+                "--batch_size", str(SERVE_BATCH), "--out", "pred.jsonl"])
+            served = counts()
+            raws = np.stack([load_image(p) / 65535.0 for p in paths])
+            pred = Predictor.from_run("seg", "s",
+                                      dataset_name="SyntheticDrone")
+            masks = seg_masks(pred, raws, SERVE_BATCH)
+            records = served_masks(out, paths, masks)
+            rows["segmentation"] = seg["run"].read_metrics()
+            for mode in ("neural_network", "none"):
+                t0 = time.perf_counter()
+                (res,) = cli.main(common + [
+                    "--dataset", "SyntheticMicroscopy", "--processing_mode",
+                    mode, "--run_name", mode])
+                torch.cuda.synchronize()
+                seconds[mode] = time.perf_counter() - t0
+                rows[mode] = res["run"].read_metrics()
+        finally:
+            os.chdir(cwd)
+    trained_pred = Predictor(copy.deepcopy(seg["state"].processor),
+                             copy.deepcopy(seg["state"].classifier),
+                             task="segmentation", device=device)
+    err = float((seg_masks(trained_pred, raws, SERVE_BATCH)
+                 - masks).abs().max())
+    keys = {mode: [sorted(k for k in r if k not in ("time", "step"))
+                   for r in got] for mode, got in rows.items()}
+    emit({"phase": "seg_cli", "seconds": seconds, "metrics": rows,
+          "train_launches": trained, "served_images": n_images,
+          "served_launches": served,
+          "mask_pixels": [r["mask_pixels"] for r in records][:8],
+          "from_run_vs_trained_max_abs": err})
+    check(keys["segmentation"] == [
+        ["train_iou_score", "train_loss", "train_loss_aux"],
+        ["val_iou_score", "val_loss"]], f"segmentation metrics {keys}")
+    for mode in ("neural_network", "none"):
+        check(keys[mode] == [
+            ["train_accuracy", "train_loss", "train_loss_aux"],
+            ["val_accuracy", "val_loss"]], f"{mode} metrics {keys}")
+    check(all(np.isfinite(v) for got in rows.values() for r in got
+              for k, v in r.items() if k not in ("time", "step")),
+          "finite metrics")
+    check(trained["fused_isp_fwd_train"] == 1
+          and trained["fused_isp_bwd_res"] == 1,
+          f"the segmentation run's one step launched {trained}")
+    check(served == launches(fwd=-(-n_images // SERVE_BATCH)),
+          f"serving the segmentation run launched {served}")
+    check(err <= 1e-6, f"from_run masks vs the trained modules {err}")
+
+
+def seg_train_runner(device, b, remat=False):
+    """A segmentation train step at ``b`` through the ISP kernels (the
+    U-Net++ with ``remat`` or not): a callable taking and ignoring one
+    argument (for ``cuda_ms``)."""
+    raw, y = seg_batch(device, b)
+    proc, net = seg_modules(device, remat=remat)
+    cfg = TrainConfig(task="segmentation", lr=TRAIN_LR)
+    state = create_train_state(cfg, proc, net)
+    step = make_train_step(cfg, proc, net)
+    return lambda _: step(state, raw, y)
+
+
+def seg_serve_runner(device, b):
+    """``Predictor.__call__`` of the segmentation pair on ``b`` mosaics on
+    the device, as ``seg_train_runner``."""
+    raw, _ = seg_batch(device, b)
+    pred = Predictor(*seg_modules(device), task="segmentation",
+                     device=device)
+    return lambda _: pred(raw)
+
+
+def isp_train_runner(device, b, neural):
+    """A train step at ``b`` of the neural ISP (or the identity ISP) in
+    front of ResNet-18 as built, as ``seg_train_runner``."""
+    raw, y = labelled_mosaics(device, b)
+    proc = (NNProcessing(**mosaic_stats(), device=device,
+                         generator=torch.Generator(device).manual_seed(SEED))
+            if neural else RawToRGB(**mosaic_stats(), device=device))
+    clf = train_classifier(device)
+    cfg = TrainConfig(lr=TRAIN_LR)
+    state = create_train_state(cfg, proc, clf)
+    step = make_train_step(cfg, proc, clf)
+    return lambda _: step(state, raw, y)
+
+
+# what each timed step runs, and the launches of the port's kernels per
+# call
+SEG_TIMED = {
+    "seg_train": (seg_train_runner,
+                  {"fused_isp_fwd_train": 1, "fused_isp_bwd_res": 1}),
+    "seg_train_remat": (lambda d, b: seg_train_runner(d, b, remat=True),
+                        {"fused_isp_fwd_train": 1, "fused_isp_bwd_res": 1}),
+    "seg_serve": (seg_serve_runner, {"fused_isp_fwd": 1}),
+    "neural_train": (lambda d, b: isp_train_runner(d, b, True), {}),
+    "identity_train": (lambda d, b: isp_train_runner(d, b, False), {})}
+
+
+def timed_step(device, what, b):
+    """CUDA-event ms of ``what`` at ``b`` (the mean of ``iters`` calls
+    after 2 warm-ups), its launches per call, peak device memory, then its
+    profile over ``profiled`` more calls (device ms by kernel, idle
+    share); ``iters`` and ``profiled`` as SEG_TIMES says."""
+    make, per_call = SEG_TIMED[what]
+    iters, profiled = (10, 2) if b <= SERVE_BATCH else (BIG_ITERS, 1)
+    gc.collect()  # the last step's modules and batch, before the peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = make(device, b)
+    reset_counts()
+    ms = cuda_ms(run, [None, None], iters)
+    seen = counts()
+    peak = torch.cuda.max_memory_allocated()
+    kernels, busy, wall_ms = profile_calls(run, None, profiled, warmups=0)
+    ours = {name: sum(k[0] for k in kernels if key in k[1])
+            for name, key in PROFILE_KEYS.items()}
+    ours = {name: v for name, v in ours.items() if v > 0}
+    row = {"phase": "seg_times", "what": what, "batch": b, "ms": ms,
+           "timed_calls": iters, "profiled_calls": profiled,
+           "imgs_per_s": b / ms * 1e3, "peak_memory_gib": peak / 2 ** 30,
+           "device_memory_gib":
+               torch.cuda.get_device_properties(0).total_memory / 2 ** 30,
+           "launches": seen, "wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / wall_ms,
+           "port_kernels_device_ms": ours,
+           "top_kernels_ms": [[k[1][:70], k[0], k[2]] for k in kernels[:10]]}
+    emit(row)
+    want = dict(launches(), **{k: n * (iters + 2)
+                               for k, n in per_call.items()})
+    check(seen == want, f"{what} at {b} launched {seen}")
+    check(set(ours) == set(per_call), f"the {what} profile shows {ours}")
+    return row
+
+
+def phase_seg_times(device):
+    """``timed_step`` of every step of SEG_TIMES."""
+    return {(what, b): timed_step(device, what, b) for what, b in SEG_TIMES}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -2387,6 +2897,16 @@ def main():
     lap("static_precompute")
     phase_static_profile(device, phase_static_times(device))
     lap("static_times_and_profile")
+    # segmentation and the neural and identity ISPs, each path driven
+    # with the counts set to 0 just before it and read just after
+    seg_launches = dict(launches(), **phase_seg_train(device))
+    seg_launches["fused_isp_fwd"] = phase_seg_serve(device)["fused_isp_fwd"]
+    phase_neural_identity(device)
+    lap("seg_and_neural_paths")
+    phase_seg_cli(device)
+    lap("seg_and_neural_cli")
+    phase_seg_times(device)
+    lap("seg_and_neural_times_and_profile")
     emit({"phase": "seconds", **seconds})
     entries = []
     for name, (replaces, source) in KERNELS.items():
@@ -2401,6 +2921,9 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[name],
+            # launches of the segmentation path: its 3 train steps and
+            # the 2 batches of its serving run
+            "segmentation_launches": seg_launches[name],
             "max_abs_err": max_err[name],
             # ms: CUDA events around the wrapper call (parameter packing,
             # and for the backward the partials' sum and unpacking,

@@ -75,7 +75,9 @@ def _walk(tree, path=()):
 def resnet_state_dict(variables):
     """flax ``ResNet`` variables -> the port's ``ResNet`` state dict (conv
     HWIO -> OIHW, Dense kernel (in, out) -> Linear weight (out, in),
-    BN scale/bias/mean/var -> weight/bias/running_mean/running_var)."""
+    BN scale/bias/mean/var -> weight/bias/running_mean/running_var).
+    Modules whose names ``_resnet_name`` keeps map by the same rules, so
+    it also carries the models built around a ResNet (below)."""
     sd = {}
     for path, a in _walk(variables["params"]):
         name, leaf = _resnet_name(path[:-1]), path[-1]
@@ -94,3 +96,11 @@ def resnet_state_dict(variables):
         sd[f"{name}.running_{path[-1]}"] = _t(a)  # mean, var
         sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+
+# flax ``UNetPlusPlus`` (encoder under ``encoder/``, decoder nodes
+# ``x_i_j/conv{k}``, ``bn{k}``, ``segmentation_head``) and ``NNProcessing``
+# (the U-Net++ under ``model/``, the output batch norm's statistics under
+# ``batch_norm``) keep the port's names, so the ResNet mapping carries both
+unetpp_state_dict = nn_isp_state_dict = resnet_state_dict

@@ -1,6 +1,8 @@
 """Image signal processors (raw mosaic -> planar RGB)."""
 
 from raw2logit_tpu_torch.isp.batchnorm import TorchBatchNorm  # noqa: F401
+from raw2logit_tpu_torch.isp.identity import RawToRGB  # noqa: F401
+from raw2logit_tpu_torch.isp.neural import NNProcessing  # noqa: F401
 from raw2logit_tpu_torch.isp.parametrized import (  # noqa: F401
     ParametrizedProcessing)
 from raw2logit_tpu_torch.isp.static import (  # noqa: F401

@@ -157,6 +157,7 @@ class ResNet(nn.Module):
 
     forward(x) -> logits; forward(x, return_features=True, depth=d) ->
     [identity, stem (1/2), c2 (1/4), c3 (1/8), c4 (1/16), c5 (1/32)][:d + 1].
+    ``num_classes=None`` builds no ``fc`` (a features-only encoder).
     ``device`` None means cuda (raises when CUDA is missing); the random
     init draws from ``generator`` (a ``torch.Generator`` on that device,
     seeded 0 when None).
@@ -195,7 +196,8 @@ class ResNet(nn.Module):
             layer = nn.Sequential(*blocks)
             self.add_module(f"layer{i + 1}", layer)
             self.layers.append(layer)
-        self.fc = nn.Linear(channels, num_classes, device=device)
+        self.fc = (None if num_classes is None
+                   else nn.Linear(channels, num_classes, device=device))
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
         self.reset_parameters(generator)
@@ -210,7 +212,8 @@ class ResNet(nn.Module):
                 _lecun_normal_(m.weight, generator)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
-        nn.init.zeros_(self.fc.bias)
+        if self.fc is not None:
+            nn.init.zeros_(self.fc.bias)
         for layer in self.layers:
             for block in layer:
                 block.zero_init_last_bn()

@@ -1,10 +1,11 @@
 """Batch inference (port of ``raw2logit_tpu/serving.py``).
 
 Serves raw (B, H, W) float32 mosaics -> logits (B, classes), or sigmoid
-masks for segmentation: from modules that already hold their weights, or
-from a training run of the port's CLI (``Predictor.from_run``: the run's
-checkpoint files and, for a static run, its pipeline rebuilt from the
-run's ``sp_*`` arguments). The CLI serves a run on a folder of images:
+masks (B, 1, H, W) for segmentation: from modules that already hold
+their weights, or from a training run of the port's CLI
+(``Predictor.from_run``: the run's checkpoint files and, for a static
+run, its pipeline rebuilt from the run's ``sp_*`` arguments). The CLI
+serves a run on a folder of images:
 
     python -m raw2logit_tpu_torch.serving --experiment_name e \
         --run_name r --image_dir dngs/ [--processing_mode static] \
@@ -52,23 +53,35 @@ class Predictor:
         ``processing_mode='parametrized'`` loads the run's processor file
         into ``ParametrizedProcessing`` (with the fused kernels unless
         ``use_kernel=False``); ``'static'`` rebuilds the static pipeline
-        and the normalisation from the run's ``sp_*`` arguments."""
+        and the normalisation from the run's ``sp_*`` arguments. A
+        segmentation dataset serves sigmoid masks from the U-Net++ that
+        the JAX package builds here: a ``resnet34`` encoder, whatever
+        ``network`` says. What the JAX package cannot serve raises (a run
+        with another encoder, the neural and identity modes; ROADMAP
+        Queue 3)."""
         from raw2logit_tpu_torch.data.datasets import (dataset_stats,
                                                        get_dataset)
         from raw2logit_tpu_torch.isp import (ParametrizedProcessing,
                                              StaticPipeline)
-        from raw2logit_tpu_torch.models import resnet_model
+        from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
         from raw2logit_tpu_torch.tracking.run import get_model_by_name
         from raw2logit_tpu_torch.training import checkpoint as ckpt
 
         device = resolve_device(device)
+        if processing_mode not in ("parametrized", "static"):
+            raise ValueError(
+                f"processing_mode {processing_mode!r}: the JAX Predictor has "
+                f"no branch for it and would feed the raw mosaic to the "
+                f"task model, which fails (ROADMAP Queue 3)")
         state_dict, ckpts = get_model_by_name(experiment_name, run_name,
                                               root=root)
         dataset = get_dataset(dataset_name, **dataset_kwargs)
-        if dataset.task != "classification":
-            raise NotImplementedError(
-                "serving a segmentation run comes with the segmentation "
-                "slice of the port (ROADMAP Queue 1 item 7)")
+        encoder = (state_dict or {}).get("smp_encoder", "resnet34")
+        if dataset.task == "segmentation" and encoder != "resnet34":
+            raise ValueError(
+                f"run {experiment_name}/{run_name} trained a U-Net++ on "
+                f"{encoder}; the JAX Predictor always builds resnet34's and "
+                f"cannot restore it (ROADMAP Queue 3)")
 
         processor = process_fn = None
         if processing_mode == "parametrized":
@@ -99,11 +112,17 @@ class Predictor:
             def process_fn(raw):
                 return (pipe(raw) - mean) / std
 
-        classifier = resnet_model(network,
-                                  fc_out_features=len(dataset.classes),
-                                  device=device)
+        if dataset.task == "classification":
+            classifier = resnet_model(network,
+                                      fc_out_features=len(dataset.classes),
+                                      device=device)
+        else:
+            classifier = UNetPlusPlus(encoder_depth=5,
+                                      decoder_channels=(256, 128, 64, 32, 16),
+                                      classes=1, device=device)
         ckpt.load_module(ckpts["classifier"], classifier)
-        pred = cls(processor, classifier, process_fn=process_fn,
+        pred = cls(processor, classifier, task=dataset.task,
+                   process_fn=process_fn,
                    classes=getattr(dataset, "classes", None), device=device)
         pred.state_dict = state_dict
         return pred

@@ -4,16 +4,19 @@
         --dataset SyntheticMicroscopy --use_pallas --epochs 2 \
         --batch_size 32 [--device cpu]
 
-dataset -> k-fold -> per fold: processor and classifier -> (adversarial
+dataset -> k-fold -> per fold: processor and task model -> (adversarial
 setup) -> train and validation epochs -> checkpoints, recorded in the
 local run store under ``results/runs/<experiment>/<run>/<run>_<fold>/``.
 The parser keeps the JAX package's whole flag surface and adds
-``--device`` (``cuda`` unless given; raises without CUDA). It runs
-classification with the parametrized ISP (plain, frozen or adversarial)
-or the static ISP (``--processing_mode static``: the pipeline and the
+``--device`` (``cuda`` unless given; raises without CUDA). It runs every
+processing mode: the parametrized ISP (plain, frozen or adversarial),
+the static ISP (``--processing_mode static``: the pipeline and the
 normalisation in every step, or once over the dataset with
-``--precompute_static``); the options that later slices port raise
-``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
+``--precompute_static``), the neural ISP (``neural_network``) and the
+identity packing (``none``); a classification dataset trains a ResNet, a
+segmentation dataset (``SyntheticDrone``) a U-Net++. The options that
+later slices port raise ``NotImplementedError`` naming the ROADMAP
+Queue 1 item that ports them.
 """
 
 import argparse
@@ -30,8 +33,9 @@ from raw2logit_tpu_torch import resolve_device
 from raw2logit_tpu_torch.data import (Loader, PrecomputedRGBView, Subset,
                                       dataset_stats, get_dataset, k_fold,
                                       precompute_pipeline_rgb)
-from raw2logit_tpu_torch.isp import ParametrizedProcessing, StaticPipeline
-from raw2logit_tpu_torch.models import resnet_model
+from raw2logit_tpu_torch.isp import (NNProcessing, ParametrizedProcessing,
+                                     RawToRGB, StaticPipeline)
+from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
 from raw2logit_tpu_torch.tracking import Run
 from raw2logit_tpu_torch.training import checkpoint as ckpt
 from raw2logit_tpu_torch.training.core import (TrainConfig, create_train_state,
@@ -171,9 +175,6 @@ def _refuse_unported(args):
     """Raise NotImplementedError for an option that a later slice of the
     port brings, naming the ROADMAP Queue 1 item."""
     unported = (
-        (args.processing_mode in ("neural_network", "none"),
-         f"--processing_mode {args.processing_mode} comes with the neural "
-         f"and identity ISP slice (ROADMAP Queue 1 item 8)"),
         (args.track_processing or args.track_processing_gradients
          or args.track_save_tensors or args.track_predictions
          or args.track_every_epoch,
@@ -223,22 +224,67 @@ class _StaticAsModule(torch.nn.Module):
         return (rgb - self.mean) / self.std, {}
 
 
-def build_processor(args, dataset, image_size, device):
-    if args.processing_mode == "static":
-        stats = dataset_stats(args.dataset)
+# Processing modes whose RGB is (H/2, W/2): a segmentation mask is (H, W)
+HALF_RESOLUTION_MODES = ("neural_network", "none")
+
+
+def _refuse_unrunnable(args, task):
+    """Raise where the JAX package cannot run the combination either,
+    or where it would overlay weights that the port cannot load yet."""
+    if task == "segmentation" and args.processing_mode in \
+            HALF_RESOLUTION_MODES:
+        raise ValueError(
+            f"--processing_mode {args.processing_mode} gives (H/2, W/2) "
+            f"RGB and the masks of a segmentation dataset are (H, W): the "
+            f"JAX package fails on this combination too (its Dice loss "
+            f"cannot broadcast them, ROADMAP Queue 3)")
+    encoders = (([args.smp_encoder] if task == "segmentation" else [])
+                + (["resnet34"] if args.processing_mode == "neural_network"
+                   else []))
+    for name in encoders:
+        path = os.path.join("weights", f"{name.lower()}.npz")
+        if os.path.exists(path):
+            raise NotImplementedError(
+                f"{path} exists, and the JAX package would overlay it onto "
+                f"the {name} encoder; the port's overlay of ImageNet "
+                f"weights comes with ROADMAP Queue 1 item 11")
+
+
+def build_processor(args, dataset, image_size, device, generator):
+    """The processing mode's module (the neural ISP's U-Net++ draws its
+    init from ``generator``)."""
+    stats = dataset_stats(args.dataset)
+    mode = args.processing_mode
+    if mode == "static":
         return _StaticAsModule(_static_pipeline(args, dataset),
                                stats["mean"], stats["std"], device)
-    return ParametrizedProcessing(
-        camera_parameters=dataset.camera_parameters,
-        batch_norm_output=True,
-        additive_layer=args.adv_training and args.adv_noise_layer,
-        image_size=image_size, use_kernel=args.use_pallas, device=device)
+    if mode == "parametrized":
+        return ParametrizedProcessing(
+            camera_parameters=dataset.camera_parameters,
+            batch_norm_output=True,
+            additive_layer=args.adv_training and args.adv_noise_layer,
+            image_size=image_size, use_kernel=args.use_pallas,
+            device=device)
+    # Drone's statistics have no mosaic entries: no normalisation
+    mosaic = {"normalize_mosaic_mean": stats.get("mosaic_mean"),
+              "normalize_mosaic_std": stats.get("mosaic_std")}
+    if mode == "neural_network":
+        return NNProcessing(device=device, generator=generator, **mosaic)
+    return RawToRGB(device=device, **mosaic)
 
 
-def build_classifier(args, dataset, device, seed):
-    return resnet_model(model=args.classifier_network.lower(),
-                        fc_out_features=len(dataset.classes), device=device,
-                        generator=torch.Generator(device).manual_seed(seed))
+def build_classifier(args, dataset, device, generator):
+    """The task model: a ResNet for classification, a U-Net++ on
+    ``--smp_encoder`` for segmentation, its init drawn from
+    ``generator``."""
+    if dataset.task == "classification":
+        return resnet_model(model=args.classifier_network.lower(),
+                            fc_out_features=len(dataset.classes),
+                            device=device, generator=generator)
+    return UNetPlusPlus(encoder_name=args.smp_encoder, encoder_depth=5,
+                        decoder_channels=(256, 128, 64, 32, 16),
+                        in_channels=3, classes=1, device=device,
+                        generator=generator)
 
 
 def _epoch_means(metrics, weights=None):
@@ -260,9 +306,7 @@ def run_train(args):
     print(f"task: {dataset.task}")
     print(f"mode: {training_mode} training")
     print(f"# cross-validation subsets: {args.n_splits}")
-    if dataset.task != "classification":
-        raise NotImplementedError("segmentation comes with the segmentation "
-                                  "slice (ROADMAP Queue 1 item 7)")
+    _refuse_unrunnable(args, dataset.task)
 
     if args.adv_training:
         assert args.processing_mode == "parametrized", \
@@ -318,9 +362,13 @@ def run_train(args):
     for k_iter, (train_indices, valid_indices) in enumerate(idxs_kfold):
         print(f"K_fold subset: {k_iter + 1}/{args.n_splits}")
         # with the precompute the ISP has already run
+        # one stream, processor first: only the neural ISP draws from it,
+        # so the other modes' task models start as seeded alone
+        init = torch.Generator(device).manual_seed(args.seed)
         processor = (None if precompute
-                     else build_processor(args, dataset, image_size, device))
-        classifier = build_classifier(args, dataset, device, args.seed)
+                     else build_processor(args, dataset, image_size, device,
+                                          init))
+        classifier = build_classifier(args, dataset, device, init)
 
         state_dict = dict(vars(args))
         if args.state_dict_uri:
@@ -329,7 +377,8 @@ def run_train(args):
             train_indices = loaded["train_indices"]
             valid_indices = loaded["valid_indices"]
             state_dict.update(loaded)
-        state_dict["classes"] = dataset.classes
+        if dataset.task == "classification":
+            state_dict["classes"] = dataset.classes
         state_dict["train_indices"] = list(map(int, train_indices))
         state_dict["valid_indices"] = list(map(int, valid_indices))
         state_dict["elements in train set"] = len(train_indices)

@@ -290,14 +290,11 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--processing_mode", "none"], "item 8"),
-    (["--processing_mode", "neural_network"], "item 8"),
     (["--track_processing"], "item 11"),
     (["--classifier_pretrained"], "item 11"),
     (["--profile"], "item 11"),
     (["--staged_step"], "item 3"),
     (["--compute_dtype", "bfloat16"], "item 11"),
-    (["--dataset", "SyntheticDrone"], "item 7"),
 ])
 def test_cli_refuses_unported_options(flags, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -168,7 +168,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "new = ('isp.static', 'ops.demosaic', 'ops.denoise_extra',\n"
-        "       'data.precompute', 'tracking.run', 'serving')\n"
+        "       'data.precompute', 'tracking.run', 'serving',\n"
+        "       'models.unetpp', 'isp.neural', 'isp.identity')\n"
         "assert all(pkg.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'orbax', 'raw2logit_tpu'))\n"
@@ -334,10 +335,6 @@ def test_from_run_static_matches_jax(runs):
 def test_from_run_refusals(runs):
     with pytest.raises(FileNotFoundError, match="no processor checkpoint"):
         from_run(runs, "static", "parametrized")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Predictor.from_run("e", "static", dataset_name="SyntheticDrone",
-                           processing_mode="static", root=runs["root"],
-                           device="cpu", n=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Predictor.from_run("e", "static", root=runs["root"])
