@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and drift-forensics paths, the
-fused ResNet stem, the static ISP's drift-synthesis path, segmentation and
-the neural and identity ISPs, on one NVIDIA GPU and check them.
+fused ResNet stem, the static ISP's drift-synthesis path, segmentation,
+the neural and identity ISPs and the drift evaluation harness, on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -142,12 +143,33 @@ line):
    ``SEG_TIMES``: the segmentation train step and serving at B=32 and at
    the largest batch that fits (the train step at 256 with ``remat``),
    and the neural and identity ISP train steps at B=32 and B=256.
-25. the ``kernels`` line (with each kernel's launches on the segmentation
+25. eval gates: the corruption battery (all but jpeg_compression, PIL)
+   at severities 1, 3 and 5 on the microscopy static pipeline's RGB of
+   32 SyntheticMicroscopy mosaics, in float32 on the card against the
+   port's float64 run on the CPU on the same draws (``EVAL_*``); the
+   identity cell program's logits against the CPU's float64 run; every
+   cell program of the C table run without a host synchronisation
+   (torch's sync debug mode raising).
+26. eval cli: two 1-epoch static --test_runs through the training CLI,
+   then ``raw2logit_tpu_torch.figures.ABtesting`` with ABMakeTable (2 x
+   12) and CMakeTable (2 x 11 x 5) over their classifiers: every cell
+   finite, each diagonal cell equal to its classifier evaluated directly,
+   a second invocation computing no cell, --N_runs 1 discarding the A/B
+   table.
+27. eval times: the full 12 x 12 A/B table and one row of the C table on
+   940 SyntheticMicroscopy mosaics (the valid split, 188 images) at
+   B = 32 and 256, the wall seconds split into precomputes and cell
+   programs, the C cells' images/s at severity 3, peak memory; profiles
+   of the identity cell and of one precompute. No kernel of the port
+   launches in 25-27.
+28. the ``kernels`` line (with each kernel's launches on the segmentation
    path), then the ``ok`` line.
 """
 
+import contextlib
 import copy
 import gc
+import io
 import json
 import os
 import subprocess
@@ -163,8 +185,14 @@ from raw2logit_tpu_torch.data import (DRONE_CAMERA_PARAMS,
                                       ArrayDataset,
                                       SyntheticRawClassification,
                                       SyntheticRawSegmentation,
-                                      dataset_stats, load_image,
+                                      dataset_stats, k_fold, load_image,
                                       precompute_pipeline_rgb, write_dng)
+from raw2logit_tpu_torch.evaluation import CORRUPTIONS, ConfusionMetrics
+from raw2logit_tpu_torch.evaluation import abtesting
+from raw2logit_tpu_torch.evaluation.abtesting import (CORRUPTION_LIST,
+                                                      ABTesting,
+                                                      pipeline_grid,
+                                                      pipeline_name)
 from raw2logit_tpu_torch.isp import (NNProcessing, ParametrizedProcessing,
                                      RawToRGB, StaticPipeline,
                                      TorchBatchNorm, static_process)
@@ -186,6 +214,7 @@ from raw2logit_tpu_torch.ops.filters import full_float32
 from raw2logit_tpu_torch.ops.mosaic import subtract_black_level_cfa
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
 from raw2logit_tpu_torch.serving import Predictor
+from raw2logit_tpu_torch.training.checkpoint import save_module
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
                                           make_train_step)
 
@@ -438,6 +467,30 @@ SEG_TIMES = (("seg_train", SERVE_BATCH), ("seg_train", 128),
              ("identity_train", BIG_BATCH))
 BIG_ITERS = 3
 NN_BATCH = 4
+# Evaluation (the corruption battery and the A/B and C tables; no kernel
+# of the port on their path). Each transform but jpeg_compression (PIL,
+# not on the card's machine) at EVAL_SEVERITIES on the card in float32
+# against the port's float64 run on the CPU, on the same draws (float32,
+# as JAX's): max abs difference within EVAL_TOL. The coordinates and the
+# thresholded fields are float32 in both runs and the bodies sum in the
+# same order, so what remains is float32 rounding of the values: the
+# CPU's float32 run read 4.2e-7 at most (B = 4, 256x256) against float64;
+# EVAL_TOL leaves ten times that for the card's convolutions. Spatter
+# thresholds a gaussian-filtered float32 field, which the card's and the
+# CPU's convolutions round differently: a near-tie may flip and move
+# the pixels around it; at most EVAL_SPATTER_SITES of its (H, W) positions
+# may differ by more. The identity cell program's logits (in graph, a
+# seeded ResNet-18) on the card against the CPU in float64, abs:
+# EVAL_LOGIT_TOL (LOGIT_TOL).
+EVAL_SEVERITIES = (1, 3, 5)
+EVAL_TRANSFORMS = tuple(n for n in CORRUPTIONS if n != "jpeg_compression")
+EVAL_TOL, EVAL_SPATTER_SITES, EVAL_LOGIT_TOL = 1e-5, 64, LOGIT_TOL
+EVAL_PIPELINE = ("bilinear", "sharpening_filter", "gaussian_denoising")
+# The tables as a user pays for them: SyntheticMicroscopy at the
+# Raw-Microscopy count (SURVEY.md:360), 256x256, the valid split of the
+# CLI's --train_size 0.8 (188 images); ResNet-18 at full width, one fold;
+# the CLI's batch (32) and 256.
+EVAL_N, EVAL_BATCHES = 940, (SERVE_BATCH, BIG_BATCH)
 
 
 def emit(obj):
@@ -2426,24 +2479,31 @@ def phase_static_cli(device, batch=SERVE_BATCH, n_images=SERVE_IMAGES):
           f"{err_records}")
 
 
+def profile_without_port_kernels(phase, what, batch, fn, calls, warmups=3):
+    """Device time by kernel and the device's idle share of ``fn(None)``
+    (``profile_calls``), emitted as a ``phase`` line: no kernel of the
+    port may show in the profile."""
+    kernels, busy, wall_ms = profile_calls(fn, None, calls, warmups)
+    ours = {name: sum(k[0] for k in kernels if key in k[1])
+            for name, key in PROFILE_KEYS.items()}
+    ours = {name: ms for name, ms in ours.items() if ms > 0}
+    emit({"phase": phase, "what": what, "batch": batch, "calls": calls,
+          "wall_ms": wall_ms, "device_busy_ms": busy,
+          "kernel_ms_sum": sum(k[0] for k in kernels),
+          "device_idle_share": 1 - busy / wall_ms,
+          "port_kernels_device_ms": ours,
+          "top_kernels_ms": [[k[1][:70], k[0], k[2]]
+                             for k in kernels[:15]]})
+    check(busy > 0 and not ours, f"the {what} profile shows device time "
+                                 f"and no port kernel: {ours}")
+
+
 def phase_static_profile(device, runners, calls=5):
     """Device time by kernel and the device's idle share of each static
     train step (``phase_static_times``' runners): no kernel of the port
     in the profile."""
     for (what, b), run in runners.items():
-        kernels, busy, wall_ms = profile_calls(run, None, calls)
-        ours = {name: sum(k[0] for k in kernels if key in k[1])
-                for name, key in PROFILE_KEYS.items()}
-        ours = {name: ms for name, ms in ours.items() if ms > 0}
-        emit({"phase": "profile", "what": what, "batch": b,
-              "wall_ms": wall_ms, "device_busy_ms": busy,
-              "kernel_ms_sum": sum(k[0] for k in kernels),
-              "device_idle_share": 1 - busy / wall_ms,
-              "port_kernels_device_ms": ours,
-              "top_kernels_ms": [[k[1][:70], k[0], k[2]]
-                                 for k in kernels[:15]]})
-        check(busy > 0 and not ours, f"the {what} profile shows device "
-                                     f"time and no port kernel: {ours}")
+        profile_without_port_kernels("profile", what, b, run, calls)
 
 
 # --- segmentation, the neural and identity ISPs ----------------------------
@@ -2842,6 +2902,376 @@ def phase_seg_times(device):
     return {(what, b): timed_step(device, what, b) for what, b in SEG_TIMES}
 
 
+# --- evaluation: the corruption battery, the A/B and C tables -------------
+
+def moved(draws, device):
+    """The tensors of a draw dict (or list, tuple) on ``device``."""
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    if isinstance(draws, dict):
+        return {k: moved(v, device) for k, v in draws.items()}
+    if isinstance(draws, (list, tuple)):
+        return type(draws)(moved(v, device) for v in draws)
+    return draws
+
+
+def eval_gates(device, rgb, severities=EVAL_SEVERITIES):
+    """Each transform of EVAL_TRANSFORMS on ``rgb`` (B, 3, H, W) on the
+    device in float32 against the port's float64 run on the CPU, on the
+    same draws (made on the device from generators seeded per transform
+    and severity): max abs difference by severity and the (H, W)
+    positions past EVAL_TOL, which raise past what the gate allows.
+    Returns one report per transform."""
+    rgb64 = rgb.cpu().double()
+    reports = []
+    for k, name in enumerate(EVAL_TRANSFORMS):
+        fn = CORRUPTIONS[name]
+        errs, sites = {}, 0
+        for sev in severities:
+            seed = SEED + 100 * k + sev
+            draws = fn.draw(rgb, sev, torch.Generator(device).manual_seed(
+                seed), np.random.default_rng(seed))
+            got = fn.apply(rgb, sev, **draws)
+            want = fn.apply(rgb64, sev, **moved(draws, "cpu"))
+            check(got.shape == rgb.shape and got.dtype == torch.float32
+                  and want.dtype == torch.float64
+                  and bool(torch.isfinite(got).all()), f"{name} output")
+            err = (got.cpu().double() - want).abs()
+            errs[sev] = float(err.max())
+            sites = max(sites, int((err > EVAL_TOL).flatten(0, 1).any(0)
+                                   .sum()))
+        reports.append({"transform": name, "max_abs_by_severity": errs,
+                        "positions_past_tol": sites})
+        allowed = EVAL_SPATTER_SITES if name == "spatter" else 0
+        check(sites <= allowed, f"{name} on the card against float64: "
+                                f"{errs}, {sites} positions past {EVAL_TOL}")
+    return reports
+
+
+def without_sync(fn, *args):
+    """``fn(*args)`` once, then again with torch's sync debug mode raising
+    on any wait of the host for the card (on the card only); returns the
+    second call's result."""
+    fn(*args)
+    if args[1].device.type != "cuda":
+        return fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def eval_classifier(device, seed=SEED):
+    """A seeded full-width ResNet-18 of SyntheticMicroscopy's 2 classes, in
+    eval mode."""
+    return resnet_model("resnet18", fc_out_features=2, device=device,
+                        generator=torch.Generator(device).manual_seed(
+                            seed)).eval()
+
+
+def eval_cell_gates(device, raw, n_logits=8):
+    """The cell programs on the card: the identity program in graph
+    (static pipeline, normalisation, classifier) on ``n_logits`` mosaics
+    against the port's float64 run on the CPU; and each of them (in graph
+    for identity; on precomputed RGB for every corruption of the C table
+    at severity 3) run without a host synchronisation. Returns a
+    report."""
+    ab = ABTesting("SyntheticMicroscopy", batch_size=len(raw), device=device)
+    ab64 = ABTesting("SyntheticMicroscopy", device="cpu")
+    clf = eval_classifier(device)
+    clf64 = copy.deepcopy(clf).cpu().double()
+    x = raw[:n_logits]
+    logits = without_sync(ab._run_for("resnet18", *EVAL_PIPELINE), clf, x,
+                          torch.Generator(device).manual_seed(SEED))
+    logits64 = ab64._run_for("resnet18", *EVAL_PIPELINE)(
+        clf64, x.cpu().double(), torch.Generator().manual_seed(SEED))
+    err = float((logits.cpu().double() - logits64).abs().max())
+    with torch.no_grad():
+        rgb = static_pipeline(*EVAL_PIPELINE)(raw)
+    for corr in CORRUPTION_LIST:
+        out = without_sync(ab._run_for_rgb("resnet18", corr, 3), clf, rgb,
+                           torch.Generator(device).manual_seed(SEED))
+        check(out.shape == (len(raw), 2) and bool(torch.isfinite(out).all()),
+              f"the {corr} cell program's logits")
+    check(err <= EVAL_LOGIT_TOL, f"identity cell program against float64 "
+                                 f"{err}")
+    return {"identity_logits_vs_float64_max_abs": err,
+            "logits_abs_max": float(logits64.abs().max()),
+            "logit_tol": EVAL_LOGIT_TOL,
+            "programs_without_sync": ["identity in graph"] + [
+                f"{c} s3 on RGB" for c in CORRUPTION_LIST]}
+
+
+def phase_eval_gates(device, batch=SERVE_BATCH, size=SIZE):
+    """``eval_gates`` on the microscopy static pipeline's RGB of ``batch``
+    SyntheticMicroscopy mosaics, then ``eval_cell_gates``; no kernel of
+    the port launches."""
+    t0 = time.perf_counter()
+    raw, _ = labelled_mosaics(device, batch, size)
+    reset_counts()
+    with torch.no_grad():
+        rgb = static_pipeline(*EVAL_PIPELINE)(raw)
+    for rep in eval_gates(device, rgb):
+        emit({"phase": "eval_gates", "shape": [batch, 3, size, size],
+              "tol": EVAL_TOL, **rep})
+    emit({"phase": "eval_gates", **eval_cell_gates(device, raw)})
+    check(counts() == launches(), f"the battery launched {counts()}")
+    emit({"phase": "eval_gates", "seconds": time.perf_counter() - t0})
+
+
+@contextlib.contextmanager
+def recorded(cls, name):
+    """While the block runs, each call of ``cls.name`` is recorded in the
+    list it yields: (keyword arguments, wall seconds)."""
+    calls, orig = [], getattr(cls, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        calls.append((kwargs, time.perf_counter() - t0))
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
+def direct_metrics(device, clf, dataset, indices, pipeline):
+    """The classifier evaluated directly on ``dataset``'s ``indices`` behind
+    ``pipeline`` (one batch): its confusion metrics and least |logit
+    margin|."""
+    raw = torch.as_tensor(np.stack([dataset[i][0] for i in indices]),
+                          device=device)
+    stats = dataset_stats("SyntheticMicroscopy")
+    mean, std = (torch.tensor(stats[k], device=device).reshape(3, 1, 1)
+                 for k in ("mean", "std"))
+    with torch.no_grad():
+        logits = clf.eval()((pipeline(raw) - mean) / std).cpu().numpy()
+    cm = ConfusionMetrics(2)
+    cm.update(logits.argmax(-1), [dataset[i][1] for i in indices])
+    return cm.summary(), float(np.abs(logits[:, 0] - logits[:, 1]).min())
+
+
+EVAL_CLI_RUNS = (("bilinear", "sharpening_filter", "gaussian_denoising"),
+                 ("menon2007", "unsharp_masking", "median_denoising"))
+
+
+def phase_eval_cli(device, batch=SERVE_BATCH):
+    """Through the CLIs on the card, in a temporary directory: a 1-epoch
+    static --test_run for each of EVAL_CLI_RUNS, then
+    ``raw2logit_tpu_torch.figures.ABtesting`` with ABMakeTable (2 rows x
+    12 columns) and CMakeTable (2 rows x 11 corruptions x 5 severities)
+    over their classifiers (--checkpoints_json) and a run's
+    state_dict.json. Every cell present and finite; each diagonal
+    identity cell equal to its classifier evaluated directly on the valid
+    set; a second invocation computes no cell; --N_runs 1 discards the A/B
+    table; no kernel of the port launched."""
+    from raw2logit_tpu_torch.figures import ABtesting as ab_cli
+    from raw2logit_tpu_torch.training import train as cli
+    cwd = os.getcwd()
+    seconds, cells = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            runs = {}
+            for pip in EVAL_CLI_RUNS:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    (runs[pip],) = cli.main([
+                        "--dataset", "SyntheticMicroscopy",
+                        "--processing_mode", "static", "--sp_debayer",
+                        pip[0], "--sp_sharpening", pip[1], "--sp_denoising",
+                        pip[2], "--test_run", "--epochs", "1",
+                        "--batch_size", str(batch), "--n_splits", "1",
+                        "--experiment_name", "eval", "--run_name",
+                        pipeline_name(*pip)])
+            seconds["train"] = time.perf_counter() - t0
+            ckpts = {pipeline_name(*pip): [os.path.abspath(os.path.join(
+                res["run"].dir, "checkpoints", "classifier.pt"))]
+                for pip, res in runs.items()}
+            with open("ckpts.json", "w") as fh:
+                json.dump(ckpts, fh)
+            state_dict = os.path.join(next(iter(runs.values()))["run"].dir,
+                                      "state_dict.json")
+            common = ["--dataset_name", "SyntheticMicroscopy",
+                      "--checkpoints_json", "ckpts.json", "--state_dict",
+                      state_dict, "--out_dir", "abt"]
+            for what, mode, extra in (
+                    ("ab", "ABMakeTable", []), ("c", "CMakeTable", []),
+                    ("ab_again", "ABMakeTable", []),
+                    ("c_again", "CMakeTable", []),
+                    ("ab_n_runs_1", "ABMakeTable", ["--N_runs", "1"])):
+                t0 = time.perf_counter()
+                with recorded(ABTesting, "evaluate_runs") as calls, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    ab_cli.main(["--mode", mode] + common + extra)
+                seconds[what] = time.perf_counter() - t0
+                cells[what] = len(calls)
+            seen = counts()
+            tables = {}
+            for which in ("AB", "C"):
+                with open(f"abt/tables/{which}table_SyntheticMicroscopy_"
+                          f"weak.json") as fh:
+                    tables[which] = json.load(fh)
+            with open(state_dict) as fh:
+                valid = json.load(fh)["valid_indices"]
+        finally:
+            os.chdir(cwd)
+    ab, c = tables["AB"], tables["C"]
+    rows = [pipeline_name(*pip) for pip in runs]
+    want_ab = {f"{t}__VS__{pipeline_name(*e)}" for t in rows
+               for e in pipeline_grid()}
+    want_c = {f"{t}__{corr}__s{sev}" for t in rows
+              for corr in CORRUPTION_LIST for sev in range(1, 6)}
+    finite = all(np.isfinite(v) for table in (ab, c)
+                 for k, cell in table.items() if k != "_meta"
+                 for v in cell.values())
+    dataset = abtesting.get_dataset("SyntheticMicroscopy")  # the CLI's
+    diagonal = {}
+    for pip, res in runs.items():
+        name = pipeline_name(*pip)
+        got, margin = direct_metrics(device, res["state"].classifier,
+                                     dataset, valid, static_pipeline(*pip))
+        cell = ab[f"{name}__VS__{name}"]
+        diagonal[name] = {"direct": got, "least_margin": margin,
+                          "equal": all(cell[f"{k}_mean"] == v
+                                       for k, v in got.items())}
+    emit({"phase": "eval_cli", "seconds": seconds, "cells_computed": cells,
+          "ab_cells": len(ab) - 1, "c_cells": len(c) - 1,
+          "ab_meta": ab["_meta"], "valid_images": len(valid),
+          "diagonal": diagonal, "launches": seen})
+    check(set(ab) - {"_meta"} == want_ab and set(c) - {"_meta"} == want_c
+          and finite, "every cell present and finite")
+    check(cells == {"ab": 24, "c": 110, "ab_again": 0, "c_again": 0,
+                    "ab_n_runs_1": 24}, f"cells computed {cells}")
+    check(ab["_meta"]["n_runs"] == 1, f"the A/B table's _meta {ab['_meta']}")
+    check(all(d["equal"] for d in diagonal.values()),
+          f"diagonal cells against the classifiers {diagonal}")
+    check(seen == launches(), f"the evaluation CLI launched {seen}")
+
+
+class InMemory:
+    """A dataset's mosaics and labels held in host memory (made once,
+    outside the timed tables, as a decoded dataset would be)."""
+
+    def __init__(self, dataset):
+        self.x = np.stack([dataset[i][0] for i in range(len(dataset))])
+        self.labels = list(dataset.labels)
+        self.task, self.classes = dataset.task, dataset.classes
+        self.camera_parameters = dataset.camera_parameters
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.labels[i]
+
+
+def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
+    """The tables as a user pays for them, at each of ``batches``: the full
+    A/B table (12 x 12) and the C table of one row (11 x 5) at one fold
+    over 12 seeded ResNet-18s written with ``save_module``, on ``n``
+    SyntheticMicroscopy mosaics held in memory, the CLI's valid split.
+    Wall seconds split into the precomputes and the cell programs;
+    images/s of each C cell (by corruption at severity 3); peak device
+    memory; launch counts 0; then the profiles of the identity cell and of
+    one precompute. ``rows`` limits the A/B rows (a CPU rehearsal)."""
+    t0 = time.perf_counter()
+    dataset = InMemory(SyntheticRawClassification(n=n))
+    data_s = time.perf_counter() - t0
+    (_, valid), = k_fold(dataset, n_splits=1, seed=1, train_size=0.8)
+    valid = [int(i) for i in valid]
+    grid = pipeline_grid()[:rows]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {pipeline_name(*p): [save_module(
+            eval_classifier(device, seed=SEED + i),
+            os.path.join(tmp, str(i), "classifier.pt"))]
+            for i, p in enumerate(grid)}
+        for b in batches:
+            ab = ABTesting("SyntheticMicroscopy", batch_size=b, device=device)
+            ab.dataset = dataset
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            row = {"phase": "eval_times", "batch": b, "images": n,
+                   "valid_images": len(valid), "dataset_seconds": data_s}
+            for table in ("ab", "c"):
+                with recorded(abtesting, "precompute_pipeline_rgb") as pre, \
+                        recorded(ABTesting, "evaluate_runs") as cells, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    if table == "ab":
+                        ab.ab_make_table(ckpts, valid, os.path.join(
+                            tmp, f"ab{b}.json"))
+                    else:
+                        ab.c_make_table(dict([next(iter(ckpts.items()))]),
+                                        valid, os.path.join(tmp, f"c{b}.json"))
+                    wall = time.perf_counter() - t0
+                pre_s = sum(s for _, s in pre)
+                row.update({
+                    f"{table}_cells": len(cells),
+                    f"{table}_wall_seconds": wall,
+                    f"{table}_precomputes": len(pre),
+                    f"{table}_precompute_seconds": pre_s,
+                    f"{table}_cell_program_seconds": wall - pre_s,
+                    f"{table}_cell_images_per_s":
+                        len(cells) * len(valid) / (wall - pre_s)})
+            # the C table's cells (the precompute runs in a column's first
+            # cell: at severity 3 each cell is its program alone)
+            row["c_images_per_s_s3"] = {
+                kw["corruption"]: len(valid) / s for kw, s in cells
+                if kw["severity"] == 3}
+            row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            row["launches"] = counts()
+            emit(row)
+            check(row["launches"] == launches(),
+                  f"the tables launched {row['launches']}")
+            check(row["ab_cells"] == len(grid) * 12 and row["c_cells"] == 55,
+                  f"cells computed {row['ab_cells']}, {row['c_cells']}")
+            (path,) = next(iter(ckpts.values()))
+            clf = ab.load_model(path)
+            rgb = ab._pipeline_rgb(*grid[0])
+            run = ab._run_for_rgb("resnet18")
+            profile_without_port_kernels(
+                "eval_profile", "identity_cell", b,
+                lambda _: ab._evaluate_with(run, clf, valid, rgb_all=rgb),
+                calls=3, warmups=1)
+            profile_without_port_kernels(
+                "eval_profile", "precompute", b,
+                lambda _: precompute_pipeline_rgb(
+                    dataset, static_pipeline(*grid[0]), b, device=device),
+                calls=1, warmups=1)
+        phase_eval_padding(device, dataset, valid, rgb, path)
+
+
+def phase_eval_padding(device, dataset, valid, rgb, path, turns=4):
+    """The B = 256 table's identity cell as the port runs it (its
+    ``len(valid)`` images in one batch) and as JAX runs it (the batch
+    padded to BIG_BATCH with copies of its first image), in turns after
+    one warm-up each: wall ms of each."""
+    ab = ABTesting("SyntheticMicroscopy", batch_size=BIG_BATCH,
+                   device=device)
+    ab.dataset = dataset
+    clf, run = ab.load_model(path), ab._run_for_rgb("resnet18")
+    cells = {"unpadded": valid, "padded_as_jax":
+             valid + [valid[0]] * (BIG_BATCH - len(valid))}
+    ms = {what: [] for what in cells}
+    for turn in range(turns + 1):
+        for what, idx in cells.items():
+            t0 = time.perf_counter()
+            ab._evaluate_with(run, clf, idx, rgb_all=rgb)
+            if turn:  # the first turn warms up
+                ms[what].append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "eval_padding", "valid_images": len(valid),
+          "batch": BIG_BATCH, "identity_cell_ms": ms})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -2907,6 +3337,13 @@ def main():
     lap("seg_and_neural_cli")
     phase_seg_times(device)
     lap("seg_and_neural_times_and_profile")
+    # evaluation: the corruption battery and the A/B and C tables
+    phase_eval_gates(device)
+    lap("eval_gates")
+    phase_eval_cli(device)
+    lap("eval_cli")
+    phase_eval_times(device)
+    lap("eval_times_and_profile")
     emit({"phase": "seconds", **seconds})
     entries = []
     for name, (replaces, source) in KERNELS.items():

@@ -15,7 +15,7 @@ def _mix(img, m):
     elementwise products and sums: no matrix product, so no TF32 on the
     card in either direction (the JAX package pins these einsums to
     ``Precision.HIGHEST``), and a contiguous NCHW result."""
-    m = torch.as_tensor(m, dtype=img.dtype, device=img.device).reshape(3, 3)
+    m = constants.on_device(m, img.dtype, img.device).reshape(3, 3)
     c0, c1, c2 = img.unbind(-3)
     return torch.stack([m[k, 0] * c0 + m[k, 1] * c1 + m[k, 2] * c2
                         for k in range(3)], dim=-3)
@@ -24,7 +24,7 @@ def _mix(img, m):
 def white_balance(rgb, wb):
     """Per-channel gain (the reference's broadcast multiply by a (1, 3)
     white balance)."""
-    wb = torch.as_tensor(wb, dtype=rgb.dtype, device=rgb.device)
+    wb = constants.on_device(wb, rgb.dtype, rgb.device)
     return rgb * wb.reshape(-1)[-3:].reshape(3, 1, 1)
 
 

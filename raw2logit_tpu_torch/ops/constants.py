@@ -2,10 +2,14 @@
 
 Standard published values: ITU-R BT.601 / skimage Rec.601 YUV transform,
 textbook bilinear CFA stencils, the identity-plus-Laplacian sharpening
-stencil and a sigma-0.5 radius-2 Gaussian.
+stencil and a sigma-0.5 radius-2 Gaussian. ``on_device`` hands them to
+the ops as tensors.
 """
 
+import functools
+
 import numpy as np
+import torch
 
 # Bilinear CFA interpolation stencils, applied to the sparse scattered
 # mosaic (3/4 of R/B sites and 1/2 of G sites are zero).
@@ -51,3 +55,21 @@ DEFAULT_CAMERA_PARAMS = (
     [1.0, 1.0, 1.0],
     [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0],
 )
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constant(values, shape, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device).reshape(shape)
+
+
+def on_device(a, dtype, device):
+    """``torch.as_tensor(a, dtype=dtype, device=device)``, but an array or
+    list ``a`` (not a tensor) is copied to ``device`` once per value, dtype
+    and device and then kept: a copy from pageable host memory to the card
+    waits for the card, and the ops run inside batches that must not wait.
+    The tensor is shared: do not write into it."""
+    if isinstance(a, torch.Tensor):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    a = np.asarray(a, np.float64)
+    return _device_constant(tuple(a.ravel().tolist()), a.shape, dtype,
+                            torch.device(device))

@@ -113,7 +113,7 @@ def conv2d_single(x, kernel, pad_mode="zero"):
     kw)). Correlation, as torch Conv2d and the JAX package's
     ``conv_general_dilated``: the learned kernels need not stay
     symmetric."""
-    kernel = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    kernel = constants.on_device(kernel, x.dtype, x.device)
     kh, kw = kernel.shape[-2:]
     xp = _pad2d(x, kh // 2, kw // 2, pad_mode)
     out = conv2d_f32(xp.reshape(-1, 1, *xp.shape[-2:]),
@@ -125,7 +125,7 @@ def conv2d_separable(x, k1d, pad_mode):
     """A separable (outer-product) kernel as two rank-1 passes, vertical
     then horizontal, each axis padded on its own with ``pad_mode`` (as
     scipy applies correlate1d axis by axis)."""
-    k1d = torch.as_tensor(k1d, dtype=x.dtype, device=x.device)
+    k1d = constants.on_device(k1d, x.dtype, x.device)
     x = conv2d_single(x, k1d[:, None], pad_mode=pad_mode)
     return conv2d_single(x, k1d[None, :], pad_mode=pad_mode)
 
@@ -152,18 +152,18 @@ def gaussian_blur_y(img):
 
 
 @functools.lru_cache(maxsize=None)
-def gaussian_kernel_1d(sigma):
-    """The normalised 1-D Gaussian of scipy (truncate 4.0), float32, on
-    the CPU."""
-    return torch.from_numpy(constants._gaussian_1d(sigma,
-                                                   int(4.0 * sigma + 0.5)))
+def gaussian_kernel_1d(sigma, truncate=4.0):
+    """The normalised 1-D Gaussian of scipy, radius ``int(truncate *
+    sigma + 0.5)``, float32, on the CPU."""
+    return torch.from_numpy(constants._gaussian_1d(
+        sigma, int(truncate * sigma + 0.5)))
 
 
-def gaussian_filter_2d(x, sigma, pad_mode):
-    """scipy.ndimage.gaussian_filter on (..., H, W) planes (truncate
-    4.0), each axis padded with ``pad_mode``."""
-    return conv2d_separable(x, gaussian_kernel_1d(float(sigma)),
-                            pad_mode=pad_mode)
+def gaussian_filter_2d(x, sigma, pad_mode, truncate=4.0):
+    """scipy.ndimage.gaussian_filter on (..., H, W) planes, each axis
+    padded with ``pad_mode``."""
+    k1d = gaussian_kernel_1d(float(sigma), float(truncate))
+    return conv2d_separable(x, k1d.numpy(), pad_mode=pad_mode)
 
 
 def unsharp_mask_y(img):

@@ -7,11 +7,13 @@ B at (odd, odd). Raw input is (B, H, W); outputs are NCHW.
 
 import torch
 
+from raw2logit_tpu_torch.ops import constants
+
 
 def subtract_black_level_cfa(raw, black_level):
     """Subtract the per-site black level from a CFA mosaic, keeping the
     (..., H, W) shape."""
-    bl = torch.as_tensor(black_level, dtype=raw.dtype, device=raw.device)
+    bl = constants.on_device(black_level, raw.dtype, raw.device)
     h, w = raw.shape[-2:]
     bl_tile = bl.reshape(2, 2)
     bl_full = bl_tile.repeat(h // 2 + h % 2, w // 2 + w % 2)[:h, :w]
