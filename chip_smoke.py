@@ -162,7 +162,27 @@ line):
    programs, the C cells' images/s at severity 3, peak memory; profiles
    of the identity cell and of one precompute. No kernel of the port
    launches in 25-27.
-28. the ``kernels`` line (with each kernel's launches on the segmentation
+28. examples: the three drivers of ``raw2logit_tpu_torch.examples`` with
+   --use_pallas at B = 32 on the CLI's SyntheticMicroscopy (n = 64,
+   256x256): forensics on gamma (1 + 2 epochs; kernels 1, 2, 3 and 5, only
+   gamma drifting), optimisation (1 epoch per arm; kernels 1-3), the
+   cycle's 1 x 12 A/B table; the reports carry the committed JAX
+   artifacts' fields.
+29. sweep: ``python -m raw2logit_tpu_torch.training.sweep --shard 0
+   --n_shards 12 --epochs 1`` (one job, the CLI in a subprocess), its
+   --resume training nothing, ABMakeTable over its manifest.
+30. app: ``app.process`` on the card for a 256x256 microscopy mosaic and a
+   3000x4000 drone frame against the float64 CPU run (the static gates'
+   tolerances); the HTTP form and a POST's error reply.
+31. data parallel: two gloo ranks on cuda:0 (torch.multiprocessing), one
+   train step at global B = 64 with the stem flag off and on, against the
+   one-process step (``DP_*``); a CLI run under an NCCL group of one,
+   calling no collective.
+32. parallel helpers: full 3000x4000 drone frames split by rows over
+   [cuda:0, cuda:0] against the unsplit run (malvar2004 + median, the FFT
+   denoiser, the eval-mode ISP through kernel 1), and the 12-pipeline
+   grid against each pipeline alone.
+33. the ``kernels`` line (with each kernel's launches on the segmentation
    path), then the ``ok`` line.
 """
 
@@ -213,6 +233,7 @@ from raw2logit_tpu_torch.ops.demosaic import DEMOSAIC_FNS, menon_decision
 from raw2logit_tpu_torch.ops.filters import full_float32
 from raw2logit_tpu_torch.ops.mosaic import subtract_black_level_cfa
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
+from raw2logit_tpu_torch.parallel import distributed
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training.checkpoint import save_module
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
@@ -2029,9 +2050,10 @@ def trace_losses(prof, launched):
 
 
 # The profiler now and then drops device records (a port kernel, once a
-# whole session's): each trace stays open PROFILE_SETTLE_S after the
-# device is done, and a trace that lost records is taken again, at most
-# PROFILE_ATTEMPTS times in all.
+# whole session's; late in a long run, the first few ms of a trace): each
+# trace opens PROFILE_SETTLE_S before the first call and stays open
+# PROFILE_SETTLE_S after the device is done, and a trace that lost
+# records is taken again, at most PROFILE_ATTEMPTS times in all.
 PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
 
 
@@ -2048,6 +2070,7 @@ def profile_calls(fn, arg, calls, warmups=3):
         before = counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn(arg)
@@ -2259,6 +2282,18 @@ def menon_flips(cfa, cfa64):
                    else 0.0}
 
 
+def final_tolerance(pre, pre64, pre_err):
+    """The tolerance of a pipeline's output after gamma: STATIC_FINAL_TOL
+    plus gamma's slope times the pixel's own pre-gamma difference
+    ``pre_err`` (near the clip floor a float32 rounding moves the output
+    past STATIC_FINAL_TOL)."""
+    p = 1.0 / STATIC_GAMMA
+    slope = p * torch.minimum(pre, pre64).pow(p - 1)
+    return STATIC_FINAL_TOL + torch.where(
+        pre_err > 0, torch.minimum(slope * pre_err, pre_err.pow(p)),
+        torch.zeros_like(pre_err))
+
+
 def static_gates(device, raw, pipelines=STATIC_PIPELINES):
     """The static ISP on the card in float32 against the port's own run of
     the same functions in float64 on the CPU, on mosaics ``raw`` (B, H,
@@ -2291,7 +2326,6 @@ def static_gates(device, raw, pipelines=STATIC_PIPELINES):
                         "max_abs_err": err, "tol": STATIC_STAGE_TOL})
         check(err <= STATIC_STAGE_TOL, f"demosaic {name}: {err}")
         camera64[name] = colour_correction(white_balance(dem64, wb), ccm)
-    p = 1.0 / STATIC_GAMMA
     every = torch.arange(raw.shape[0])
     for d, s, n in pipelines:
         pre_card = filter_stage(camera_stage(raw.to(device),
@@ -2311,10 +2345,7 @@ def static_gates(device, raw, pipelines=STATIC_PIPELINES):
         final = final_card.cpu().double()[rows]
         pre_err = (pre - pre64).abs()
         final_err = (final - final64).abs()
-        slope = p * torch.minimum(pre, pre64).pow(p - 1)
-        tol = STATIC_FINAL_TOL + torch.where(
-            pre_err > 0, torch.minimum(slope * pre_err, pre_err.pow(p)),
-            torch.zeros_like(pre_err))
+        tol = final_tolerance(pre, pre64, pre_err)
         off_floor = pre64 > 0.01  # slope below 5.3 there
         rep = {"stage": "pipeline", "pipeline": [d, s, n],
                "images": len(rows),
@@ -3272,6 +3303,586 @@ def phase_eval_padding(device, dataset, valid, rgb, path, turns=4):
           "batch": BIG_BATCH, "identity_cell_ms": ms})
 
 
+# --------------------------------------------------------------------------
+# the experiment drivers, the sweep, the demo app, data parallelism, and
+# the spatial and pipeline axes
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the drivers' example run: the CLI's SyntheticMicroscopy (n = 64,
+# 256x256) at B = 32 with the fused kernels
+EXAMPLE_BATCH = 32
+# A 3000x4000 drone frame (the full frames of parallel/spatial.py's
+# docstring), smooth with noise, at the drone camera's levels.
+DRONE_FRAME = (3000, 4000)
+# Process-group step against the one-process step on the same 64 images
+# on the card (TF32 off), relative: the loss, and the abs-sums of the
+# ISP's and the classifier's parameters after Adam, at 1e-6 as
+# tests/test_distributed.py holds JAX; the BN running statistics (max
+# |difference| over max |statistic| of each buffer) at 1e-5: the ranks'
+# statistics are float64 sums over their halves, the one-process step's
+# cuDNN's float32 reduction over the whole batch.
+DP_LOSS_REL, DP_PARAM_REL, DP_STATS_REL = 1e-6, 1e-6, 1e-5
+# The parameter gradients. Adam's first update is about lr sign(g), so
+# the abs-sums above cannot see a gradient's scale; a gradient counted
+# twice (no 1 / N, a second all-reduce, the BN's weight and bias given
+# the summed value) reads 1 on the leaves it reaches (|g - want| / |want|
+# over the leaf, L2 norms; ``grad_rel``). The float32 step is
+# ill-conditioned on the card (phase_train: a 1e-7 nudge of the inputs
+# moves the ISP's gradients by up to 5%), so each rank's all-reduced
+# gradient is held, leaf by leaf, against the one-process step in
+# float64 through the plain paths (``dp_reference``): within DP_GRAD_REL
+# or STEP_F64_FACTOR times the farther of the one-process float32 step
+# and its nudged twin from it, whichever is larger.
+DP_GRAD_REL = 1e-3
+DP_BATCH = 64
+DP_TIMED = 5  # steps timed after the compared one
+# a block of rows against the whole frame (tests/test_spatial.py's 1e-6)
+SPLIT_TOL = 1e-6
+
+
+def _committed_keys(name):
+    with open(os.path.join(REPO, "results", name)) as fh:
+        return set(json.load(fh))
+
+
+def phase_examples(device, batch=EXAMPLE_BATCH):
+    """The three drivers of ``raw2logit_tpu_torch.examples`` in a temporary
+    directory, with ``--use_pallas``: drift forensics on gamma (1 epoch of
+    pretraining, 2 of attack: kernels 1, 2, 3 and 5 launched, every ISP
+    parameter but gamma drifting by exactly 0.0, the committed JAX
+    artifact's fields), drift optimisation (1 epoch per arm: kernels 1-3,
+    the artifact's fields), and the drift cycle with one training
+    pipeline and its 1 x 12 A/B table (finite; the heatmap needs
+    matplotlib, which the card's machine lacks)."""
+    from raw2logit_tpu_torch.examples import (drift_cycle, drift_forensics,
+                                              drift_optimization)
+    out, seconds, seen = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(io.StringIO()):
+        reset_counts()
+        t0 = time.perf_counter()
+        (out["forensics"],) = drift_forensics.run_forensics(
+            targets=("gamma_correct",), pre_epochs=1, adv_epochs=2,
+            batch_size=batch, out_dir="out", extra=["--use_pallas"])
+        torch.cuda.synchronize()
+        seconds["forensics"] = time.perf_counter() - t0
+        seen["forensics"] = counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        out["optimization"] = drift_optimization.run_optimization(
+            epochs=1, batch_size=batch, out_dir="out",
+            extra=["--use_pallas"])
+        torch.cuda.synchronize()
+        seconds["optimization"] = time.perf_counter() - t0
+        seen["optimization"] = counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = drift_cycle.run_cycle(
+            train_pipelines=[EVAL_PIPELINE], epochs=1, batch_size=batch,
+            table_path="tables/ab.json", device=device,
+            test_pipelines=pipeline_grid(), heatmap=False)
+        seconds["cycle"] = time.perf_counter() - t0
+        seen["cycle"] = counts()
+        with open(summary["table_path"]) as fh:
+            table = json.load(fh)
+    report = out["forensics"]
+    cells = {k: v for k, v in table.items() if k != "_meta"}
+    emit({"phase": "examples", "seconds": seconds, "launches": seen,
+          "forensics": {k: report[k] for k in (
+              "baseline_val_accuracy", "val_accuracy_per_epoch",
+              "aux_ssim_per_epoch", "param_drift_relmax", "selected_epoch",
+              "selection_replay_match")},
+          "optimization": {k: out["optimization"][k] for k in (
+              "frozen_val_loss", "joint_val_loss", "joint_better")},
+          "cycle": {"cells": len(cells), "matched_acc":
+                    summary["matched_acc"], "swapped_acc":
+                    summary["swapped_acc"]}})
+    for run, kernels in (("forensics", ("fused_isp_fwd", "fused_isp_fwd_train",
+                                        "fused_isp_bwd_res", "ssim_aux")),
+                         ("optimization", ("fused_isp_fwd",
+                                           "fused_isp_fwd_train",
+                                           "fused_isp_bwd_res"))):
+        check(all(seen[run][k] > 0 for k in kernels),
+              f"the {run} driver launched {seen[run]}")
+    drift = report["param_drift_relmax"]
+    check(drift["gamma_correct"] > 0 and all(
+        v == 0.0 for k, v in drift.items() if k != "gamma_correct"),
+        f"the targeted attack's drift {drift}")
+    check(set(report) == _committed_keys("forensics_gamma_correct.json")
+          and set(out["optimization"]) == _committed_keys(
+              "drift_optimization.json"), "the reports' fields")
+    check(len(cells) == 12 and all(np.isfinite(v) for c in cells.values()
+                                   for v in c.values()),
+          f"the cycle's A/B table {cells}")
+
+
+def phase_sweep(device, batch=SERVE_BATCH):
+    """``python -m raw2logit_tpu_torch.training.sweep --shard 0 --n_shards
+    12 --epochs 1`` on SyntheticMicroscopy (one fold, B = 32): one job of
+    the 12-pipeline grid, the training CLI in a subprocess on the card.
+    The manifest holds the job; a --resume run trains nothing; the
+    evaluation CLI's ABMakeTable over the manifest fills that row."""
+    from raw2logit_tpu_torch.figures import ABtesting as ab_cli
+    cmd = [sys.executable, "-m", "raw2logit_tpu_torch.training.sweep",
+           "--shard", "0", "--n_shards", "12", "--epochs", "1",
+           "--datasets", "SyntheticMicroscopy", "--n_splits", "1",
+           "--batch_size", str(batch), "--out", "manifest.json"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        first = subprocess.run(cmd, env=env, capture_output=True, text=True)
+        seconds["sweep"] = time.perf_counter() - t0
+        check(first.returncode == 0, f"the sweep: {first.stderr[-2000:]}")
+        with open("manifest.json") as fh:
+            manifest = json.load(fh)
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd + ["--resume"], env=env,
+                               capture_output=True, text=True)
+        seconds["resume"] = time.perf_counter() - t0
+        check(again.returncode == 0, f"the resume: {again.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        with recorded(ABTesting, "evaluate_runs") as calls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            ab_cli.main(["--mode", "ABMakeTable", "--dataset_name",
+                         "SyntheticMicroscopy", "--checkpoints_json",
+                         "manifest.json", "--batch_size", str(batch),
+                         "--out_dir", "abt"])
+        seconds["ab_table"] = time.perf_counter() - t0
+        with open("abt/tables/ABtable_SyntheticMicroscopy_weak.json") as fh:
+            table = json.load(fh)
+    (job,) = manifest["jobs"]
+    row = {k: v for k, v in table.items() if k != "_meta"}
+    emit({"phase": "sweep", "seconds": seconds, "job": job["run_name"],
+          "returncode": job["returncode"],
+          "checkpoints": manifest["checkpoints"],
+          "resume_stdout": again.stdout.strip().splitlines(),
+          "cells": len(calls)})
+    check(job["returncode"] == 0 and list(manifest["checkpoints"]) == [
+        job["pipeline"]], f"the manifest {manifest}")
+    check("skip (done)" in again.stdout
+          and sweep_trained(again.stdout) == 0,
+          f"the resume trained: {again.stdout}")
+    check(len(row) == 12 and all(k.startswith(job["pipeline"] + "__VS__")
+                                 and np.isfinite(v["accuracy_mean"])
+                                 for k, v in row.items()),
+          f"the table's row {sorted(row)}")
+
+
+def sweep_trained(stdout):
+    """The jobs a sweep's output says it started."""
+    return sum(" -m raw2logit_tpu_torch.training.train " in ln
+               for ln in stdout.splitlines())
+
+
+def drone_frames(n, shape=DRONE_FRAME, seed=SEED):
+    """``n`` smooth drone-like mosaics with noise, in [0.02, 0.9]."""
+    rng = np.random.default_rng((seed, n) + shape)
+    h, w = shape
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    frames = [np.clip(0.45 + 0.3 * np.sin(9 * x + 3 * k) * np.cos(7 * y + k)
+                      + rng.normal(0, 0.03, shape).astype(np.float32),
+                      0.02, 0.9) for k in range(n)]
+    return torch.as_tensor(np.stack(frames), dtype=torch.float32)
+
+
+def app_gate(device, raw, camera):
+    """``app.process`` of one mosaic on the card against the port's float64
+    CPU run of its pipeline (the app's defaults), with the static gates'
+    tolerances: the card's image before gamma within STATIC_PRE_TOL, the
+    app's output within STATIC_FINAL_TOL plus gamma's slope times the
+    pixel's own pre-gamma difference."""
+    from raw2logit_tpu_torch import app
+    params = app.CAMERAS[camera]
+    pipe = ("bilinear", "sharpening_filter", "gaussian_denoising")
+    t0 = time.perf_counter()
+    got = torch.as_tensor(app.process(raw.numpy(), camera=camera,
+                                      device=device)).permute(2, 0, 1)
+    card_s = time.perf_counter() - t0
+    pre = filter_stage(camera_stage(raw[None].to(device), *params, pipe[0]),
+                       *pipe[1:])[0].cpu().double()
+    pre64 = filter_stage(camera_stage(raw[None].double(), *params, pipe[0]),
+                         *pipe[1:])[0]
+    final64 = adjust_gamma(pre64, STATIC_GAMMA)
+    pre_err = (pre - pre64).abs()
+    final_err = (got.double() - final64).abs()
+    over = float((final_err / final_tolerance(pre, pre64, pre_err)).max())
+    rep = {"camera": camera, "shape": list(raw.shape), "card_seconds": card_s,
+           "pre_gamma_max_abs_err": float(pre_err.max()),
+           "final_max_abs_err": float(final_err.max()),
+           "final_max_err_over_tol": over}
+    check(rep["pre_gamma_max_abs_err"] <= STATIC_PRE_TOL and over <= 1.0,
+          f"app.process on the card against float64: {rep}")
+    return rep
+
+
+def phase_app(device):
+    """``app.process`` on the card for a 256x256 microscopy mosaic and a
+    3000x4000 drone frame against the float64 CPU run; the HTTP demo
+    served from a thread: the GET form, and a POST's error reply (PIL,
+    which a POST's upload needs, is not on the card's machine)."""
+    import urllib.error
+    import urllib.request
+    import threading
+    from raw2logit_tpu_torch import app
+    raw, _ = labelled_mosaics(torch.device("cpu"), 1)
+    reports = [app_gate(device, raw[0], "Microscope"),
+               app_gate(device, drone_frames(1)[0], "Drone")]
+    server = app.make_server(port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        base = f"http://127.0.0.1:{server.server_port}"
+        page = urllib.request.urlopen(f"{base}/", timeout=30).read()
+        req = urllib.request.Request(
+            f"{base}/process", data=b"--x--\r\n",
+            headers={"Content-Type": "multipart/form-data; boundary=x"})
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+    finally:
+        server.shutdown()
+        server.server_close()
+    controls = all(c in page for c in (b"RawImage", b"menon2007",
+                                       b"unsharp_masking", b"fft_denoising",
+                                       b"Drone"))
+    emit({"phase": "app", "gates": reports, "get_form": controls,
+          "bad_post_status": code})
+    check(controls and code == 400, f"the HTTP demo: form {controls}, "
+                                    f"bad POST {code}")
+
+
+def grad_rel(got, want):
+    """(the largest over the parameters of |got - want| / |want|, L2 norms
+    of the leaf's gradient; that parameter's name). Parameters with a
+    gradient in only one of the two read infinity."""
+    if got.keys() != want.keys():
+        return float("inf"), sorted(set(got) ^ set(want))
+    worst = (0.0, None)
+    for k, w in want.items():
+        w = w.double()
+        gap = (float((got[k].double() - w).norm())
+               / max(float(w.norm()), 1e-30))
+        worst = max(worst, (gap, k), key=lambda t: t[0])
+    return worst
+
+
+def dp_grad_gaps(ranks, one, nudged, f64):
+    """The ranks' gradients (a list of ``grads``) against the one-process
+    step's, and against the float64 step's beside the one-process float32
+    step and its nudged twin; ``ok`` if every rank is within the limit
+    (DP_GRAD_REL)."""
+    vs64 = {"ranks": [grad_rel(g, f64) for g in ranks],
+            "one": grad_rel(one, f64), "nudged": grad_rel(nudged, f64)}
+    limit = max(DP_GRAD_REL, STEP_F64_FACTOR * max(vs64["one"][0],
+                                                   vs64["nudged"][0]))
+    return {"vs_one": [grad_rel(g, one) for g in ranks],
+            "vs_float64": vs64, "limit": limit,
+            "ok": all(gap <= limit for gap, _ in vs64["ranks"])}
+
+
+def module_grads(*named):
+    """Each parameter's ``.grad`` on the host, by "<prefix>.<name>", of
+    ``named`` (prefix, module) pairs."""
+    return {f"{w}.{n}": p.grad.detach().cpu() for w, m in named
+            for n, p in m.named_parameters() if p.grad is not None}
+
+
+def dp_reference(device, batch=DP_BATCH, size=SIZE):
+    """``dp_step``'s one-process step from the same weights and images, its
+    parameter gradients only: in float64 through the plain paths (under
+    "float64"; the stem flag changes only the path), and in float32
+    through the kernels on the images nudged by 1e-7 relative, with the
+    stem flag off and on ("nudged_stem0", "nudged_stem1")."""
+    raw, y = labelled_mosaics(device, batch, size)
+    gen = torch.Generator(device).manual_seed(SEED)
+    nudged = raw * (1 + 1e-7 * torch.randn(raw.shape, device=device,
+                                           generator=gen))
+    out = {}
+    for name, stem, x, dtype in (
+            ("float64", False, raw, torch.float64),
+            ("nudged_stem0", False, nudged, torch.float32),
+            ("nudged_stem1", True, nudged, torch.float32)):
+        proc = processor(device, use_kernel=dtype == torch.float32)
+        proc = proc.train().to(dtype)
+        clf = train_classifier(device, "perturbed").to(dtype)
+        clf.stem_kernel = stem
+        cfg = TrainConfig(lr=1e-3)
+        state = create_train_state(cfg, proc, clf)
+        make_train_step(cfg, proc, clf)(state, x.to(dtype), y)
+        out[name] = module_grads(("isp", proc), ("clf", clf))
+    return out
+
+
+@contextlib.contextmanager
+def counted_all_reduce(sizes):
+    """Append the element count of every ``torch.distributed.all_reduce``
+    made inside the block to ``sizes``."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        sizes.append(t.numel())
+        return real(t, *args, **kwargs)
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def dp_step(device, stem, batch=DP_BATCH, size=SIZE, grads=None):
+    """One train step (the perturbed ISP through the kernels, the perturbed
+    ResNet-18, Adam at lr 1e-3) on this process's rows of ``batch``
+    seeded mosaics: its loss and accuracy, the parameters' abs-sums after
+    Adam, the BN running statistics, the launches and the all-reduces;
+    then the mean wall ms of DP_TIMED more steps. ``grads``, a dict,
+    receives the step's parameter gradients (on the host)."""
+    raw, y = labelled_mosaics(device, batch, size)
+    proc = processor(device, use_kernel=True).train()
+    clf = train_classifier(device, "perturbed")
+    clf.stem_kernel = stem
+    cfg = TrainConfig(lr=1e-3)
+    state = create_train_state(cfg, proc, clf)
+    step = make_train_step(cfg, proc, clf)
+    raw, y = distributed.shard(raw), distributed.shard(y)
+    reduced = []
+    reset_counts()
+    with counted_all_reduce(reduced):
+        mets = step(state, raw, y)
+    seen = counts()
+    if grads is not None:
+        grads.update(module_grads(("isp", proc), ("clf", clf)))
+
+    def abssum(m):
+        return float(sum(p.detach().double().abs().sum()
+                         for p in m.parameters()))
+    out = {"loss": float(mets["loss"]), "accuracy": float(mets["accuracy"]),
+           "isp_abs_sum": abssum(proc), "clf_abs_sum": abssum(clf),
+           "stats": {f"{w}.{n}": b.double().cpu().tolist()
+                     for w, m in (("isp", proc), ("clf", clf))
+                     for n, b in m.named_buffers() if "running" in n},
+           "launches": seen, "all_reduces": len(reduced),
+           "all_reduced_floats": sum(reduced)}
+    # then the wall ms of a step: DP_TIMED more steps on the same state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        mets = step(state, raw, y)
+    float(mets["loss"])
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED
+    return out
+
+
+def dp_rank(rank, port, out_dir, kind="cuda", batch=DP_BATCH, size=SIZE):
+    """A rank of the two-rank gloo group on cuda:0 (or the CPU for
+    ``kind`` cpu): gloo's all_reduce and broadcast on the device's
+    tensors first, then ``dp_step`` with the stem flag off and on; the
+    reports go to ``out_dir``/<rank>.json, the gradients to <rank>.pt."""
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, "gloo")
+    try:
+        t = torch.full((4,), rank + 1.0, device=device)
+        dist.all_reduce(t)
+        b = torch.full((2,), float(rank), device=device)
+        dist.broadcast(b, 0)
+        ok = bool((t == 3).all()) and bool((b == 0).all())
+        dp_step(device, False, 8, size)  # warm-up: cuDNN, the libraries
+        grads = {"stem0": {}, "stem1": {}}
+        out = {"gloo_on_cuda": ok, **{c: dp_step(
+            device, c == "stem1", batch, size, g) for c, g in grads.items()}}
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.save(grads, os.path.join(out_dir, f"{rank}.pt"))
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stats_rel(got, want):
+    """The largest over the BN buffers of max |difference| / max |want|."""
+    worst = 0.0
+    for k, w in want.items():
+        w, g = np.asarray(w), np.asarray(got[k])
+        worst = max(worst, float(np.abs(g - w).max())
+                    / max(float(np.abs(w).max()), 1e-30))
+    return worst
+
+
+def phase_data_parallel(device, batch=DP_BATCH, size=SIZE):
+    """Two ranks on the one card (both cuda:0; gloo, whose all_reduce and
+    broadcast take CUDA tensors, where NCCL refuses two ranks on one
+    device), started by torch.multiprocessing: one train step at global
+    B = 64, 256x256, with the stem flag off and on, against the
+    one-process step on the same 64 images, its parameter gradients
+    against the float64 step's (``DP_*``). Then one CLI
+    training with --n_devices 1 under an initialised NCCL group of one,
+    which must call no collective."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    dp_step(device, False, 8, size)  # warm-up
+    one_grads = {"stem0": {}, "stem1": {}}
+    one = {c: dp_step(device, c == "stem1", batch, size, g)
+           for c, g in one_grads.items()}
+    ref = dp_reference(device, batch, size)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(dp_rank, args=(free_port(), tmp, device.type,
+                                          batch, size),
+                           nprocs=2, start_method="spawn")
+        ranks, rank_grads = [], []
+        for r in range(2):
+            with open(os.path.join(tmp, f"{r}.json")) as fh:
+                ranks.append(json.load(fh))
+            rank_grads.append(torch.load(os.path.join(tmp, f"{r}.pt")))
+    spawn_s = time.perf_counter() - t0
+    rows = {}
+    for case in ("stem0", "stem1"):
+        want, r0, r1 = one[case], ranks[0][case], ranks[1][case]
+        rows[case] = {
+            "loss_rel": abs(r0["loss"] - want["loss"]) / abs(want["loss"]),
+            "accuracy": [r0["accuracy"], want["accuracy"]],
+            "isp_abs_sum_rel": abs(r0["isp_abs_sum"] - want["isp_abs_sum"])
+            / want["isp_abs_sum"],
+            "clf_abs_sum_rel": abs(r0["clf_abs_sum"] - want["clf_abs_sum"])
+            / want["clf_abs_sum"],
+            "stats_rel": stats_rel(r0["stats"], want["stats"]),
+            # each rank's gradient against the one process's and the
+            # float64 step's, each with the leaf that is furthest
+            "grads": dp_grad_gaps([g[case] for g in rank_grads],
+                                  one_grads[case], ref[f"nudged_{case}"],
+                                  ref["float64"]),
+            "grad_leaves": len(one_grads[case]),
+            "rank_all_reduces": [r0["all_reduces"],
+                                 r0["all_reduced_floats"]],
+            "ranks_equal": {k: r0[k] == r1[k] for k in (
+                "loss", "isp_abs_sum", "clf_abs_sum", "stats")},
+            "two_rank_step_ms": [r0["ms"], r1["ms"]],
+            "one_rank_step_ms": want["ms"],
+            "rank_launches": r0["launches"], "launches": want["launches"]}
+    # the CLI under a group of one: no collective
+    from raw2logit_tpu_torch.training import train as cli
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                           "nccl" if device.type == "cuda" else "gloo")
+    refused = []
+
+    def refuse(*a, **k):
+        refused.append(a)
+        raise RuntimeError("a collective in a group of one")
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast",
+                                           "all_gather", "barrier")}
+    try:
+        for n in saved:
+            setattr(dist, n, refuse)
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+                contextlib.redirect_stdout(io.StringIO()) as log:
+            reset_counts()
+            (res,) = cli.main([
+                "--dataset", "SyntheticMicroscopy", "--use_pallas",
+                "--test_run", "--epochs", "1", "--batch_size",
+                str(SERVE_BATCH), "--n_devices", "1", "--experiment_name", "dp",
+                "--run_name", "one",
+                *(["--device", "cpu"] if device.type == "cpu" else [])])
+            cli_launches = counts()
+            wrote = os.path.exists(os.path.join(res["run"].dir,
+                                                "metrics.jsonl"))
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+        distributed.shutdown()
+    emit({"phase": "data_parallel", "ranks": 2, "device": str(device),
+          "backend": "gloo", "gloo_on_cuda": [r["gloo_on_cuda"]
+                                              for r in ranks],
+          "spawn_seconds": spawn_s, "cases": rows,
+          "tol": {"loss": DP_LOSS_REL, "abs_sums": DP_PARAM_REL,
+                  "stats": DP_STATS_REL, "grads": DP_GRAD_REL},
+          "cli_group_of_one": {"launches": cli_launches, "wrote": wrote,
+                               "mesh_line": "data mesh: 1 device(s)"
+                               in log.getvalue()}})
+    check(all(r["gloo_on_cuda"] for r in ranks),
+          "gloo's all_reduce and broadcast on CUDA tensors")
+    for case, row in rows.items():
+        check(row["loss_rel"] <= DP_LOSS_REL
+              and row["isp_abs_sum_rel"] <= DP_PARAM_REL
+              and row["clf_abs_sum_rel"] <= DP_PARAM_REL
+              and row["stats_rel"] <= DP_STATS_REL
+              and row["grads"]["ok"]
+              and all(row["ranks_equal"].values()),
+              f"two ranks against one, {case}: {row}")
+        want = launches(fwd_train=1, bwd_res=1, stem_fwd=int(case[-1]),
+                        stem_bwd=int(case[-1]))
+        check(row["rank_launches"] == want and row["launches"] == want,
+              f"the {case} steps launched {row['rank_launches']}, "
+              f"{row['launches']}")
+    check(not refused and wrote and cli_launches["fused_isp_fwd_train"] > 0,
+          f"the CLI under a group of one: {cli_launches}")
+
+
+def phase_parallel_helpers(device):
+    """``process_full_frames`` over [cuda:0, cuda:0] on two 3000x4000
+    drone frames against the unsplit run on the card (``SPLIT_TOL``):
+    malvar2004 with median denoising, the FFT denoiser, and the eval-mode
+    ISP through kernel 1 (two blocks, two launches); then
+    ``process_pipeline_grid`` of the 12 pipelines over the same devices
+    against each pipeline alone (bitwise: the same ops on the same
+    card)."""
+    from raw2logit_tpu_torch.parallel import (process_full_frames,
+                                              process_pipeline_grid)
+    devices = [device, device]
+    frames = drone_frames(2).to(device)
+    rows, seconds = {}, {}
+    cases = {
+        "malvar2004_median": StaticPipeline(
+            DRONE_CAMERA_PARAMS, "malvar2004", "sharpening_filter",
+            "median_denoising"),
+        "fft_denoising": StaticPipeline(
+            DRONE_CAMERA_PARAMS, "bilinear", "unsharp_masking",
+            "fft_denoising"),
+        "isp_kernel": processor(device, True, camera=DRONE_CAMERA_PARAMS)}
+    with torch.no_grad():
+        for name, pipe in cases.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            got = process_full_frames(pipe, devices, frames)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            split = counts()["fused_isp_fwd"]
+            want = pipe(frames)
+            want = want[0] if isinstance(want, tuple) else want
+            rows[name] = {"max_abs_err": float((got - want).abs().max()),
+                          "halo": pipe.halo_rows, "launches_split": split}
+        pipes = [StaticPipeline(DRONE_CAMERA_PARAMS, *p)
+                 for p in pipeline_grid()]
+        t0 = time.perf_counter()
+        grid = process_pipeline_grid(pipes, devices, frames)
+        torch.cuda.synchronize()
+        seconds["grid"] = time.perf_counter() - t0
+        grid_equal = [bool(torch.equal(grid[i], p(frames)))
+                      for i, p in enumerate(pipes)]
+    emit({"phase": "parallel_helpers", "frames": [2, *DRONE_FRAME],
+          "devices": [str(d) for d in devices], "split": rows,
+          "grid_shape": list(grid.shape), "grid_equal": grid_equal,
+          "seconds": seconds, "tol": SPLIT_TOL})
+    check(all(r["max_abs_err"] <= SPLIT_TOL for r in rows.values())
+          and rows["isp_kernel"]["launches_split"] == 2,
+          f"split frames against unsplit: {rows}")
+    check(all(grid_equal) and tuple(grid.shape) == (12, 2, 3, *DRONE_FRAME),
+          f"the pipeline grid: {grid_equal}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -3344,6 +3955,18 @@ def main():
     lap("eval_cli")
     phase_eval_times(device)
     lap("eval_times_and_profile")
+    # the experiment drivers, the sweep, the app, data parallelism and the
+    # spatial and pipeline axes, each in a temporary directory
+    phase_examples(device)
+    lap("examples")
+    phase_sweep(device)
+    lap("sweep")
+    phase_app(device)
+    lap("app")
+    phase_data_parallel(device)
+    lap("data_parallel")
+    phase_parallel_helpers(device)
+    lap("parallel_helpers")
     emit({"phase": "seconds", **seconds})
     entries = []
     for name, (replaces, source) in KERNELS.items():

@@ -34,7 +34,6 @@ from raw2logit_tpu_torch.evaluation.metrics import (ConfusionMetrics,
                                                     over_n_runs)
 from raw2logit_tpu_torch.isp import StaticPipeline
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
-from raw2logit_tpu_torch.training import checkpoint as ckpt
 
 DEBAYERS = ["bilinear", "malvar2004", "menon2007"]
 SHARPENINGS = ["sharpening_filter", "unsharp_masking"]
@@ -107,9 +106,17 @@ class ABTesting:
         checkpoint for 55 cells."""
         key = (str(checkpoint_path), network, smp_encoder)
         if key not in self._model_cache:
-            model = self._build_classifier(network, smp_encoder)
+            # a ResNet is built on the meta device (no random init) and
+            # takes the file's tensors as its own
+            meta = self.task == "classification"
+            model = self._build_classifier(
+                network, smp_encoder,
+                device=torch.device("meta") if meta else self.device)
             try:
-                ckpt.load_module(checkpoint_path, model)
+                model.load_state_dict(torch.load(
+                    os.path.abspath(checkpoint_path),
+                    map_location=self.device, weights_only=True),
+                    assign=meta)
             except RuntimeError as e:
                 why = (f"--network {network} must name the run's classifier"
                        if self.task == "classification" else
@@ -122,13 +129,15 @@ class ABTesting:
             self._model_cache[key] = model.eval()
         return self._model_cache[key]
 
-    def _build_classifier(self, network="resnet18", smp_encoder="resnet34"):
+    def _build_classifier(self, network="resnet18", smp_encoder="resnet34",
+                          device=None):
+        device = self.device if device is None else device
         if self.task == "classification":
             return resnet_model(network, fc_out_features=len(
-                self.dataset.classes), device=self.device)
+                self.dataset.classes), device=device)
         return UNetPlusPlus(encoder_name=smp_encoder, encoder_depth=5,
                             decoder_channels=(256, 128, 64, 32, 16),
-                            classes=1, device=self.device)
+                            classes=1, device=device)
 
     def _pipeline(self, db, sh, dn):
         return StaticPipeline(

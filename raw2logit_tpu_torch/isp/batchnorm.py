@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 from torch.autograd.function import once_differentiable
 
+from raw2logit_tpu_torch.parallel import distributed
+
 _AXES = (0, 2, 3)
 
 
@@ -102,7 +104,9 @@ class TorchBatchNorm(nn.BatchNorm2d):
     ``nn.BatchNorm2d(C, affine=False)``, computed by ``torch_bn_forward``
     and ``bn_input_cotangent`` (train mode through ``_TrainBatchNorm``;
     eval mode by autograd of its two elementwise operations, whose
-    cotangent is ``dy rsqrt(var + eps)``)."""
+    cotangent is ``dy rsqrt(var + eps)``). Under a process group the
+    train-mode statistics are the global batch's
+    (``distributed.sync_batch_norm``)."""
 
     def __init__(self, num_features=3, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, affine=False,
@@ -113,10 +117,13 @@ class TorchBatchNorm(nn.BatchNorm2d):
         stats = {"mean": self.running_mean, "var": self.running_var}
         if not self.training:
             return torch_bn_forward(x, stats, False, epsilon=self.eps)[0]
-        y, mean, var = _TrainBatchNorm.apply(x, self.eps)
+        if distributed.active():
+            y, mean, var, n = distributed.sync_batch_norm(x, eps=self.eps)
+        else:
+            y, mean, var = _TrainBatchNorm.apply(x, self.eps)
+            n = x.numel() // x.shape[1]
         with torch.no_grad():
-            new = _running(stats, mean, var, x.numel() // x.shape[1],
-                           self.momentum)
+            new = _running(stats, mean, var, n, self.momentum)
             self.running_mean.copy_(new["mean"])
             self.running_var.copy_(new["var"])
             self.num_batches_tracked.add_(1)

@@ -41,6 +41,9 @@ class RawToRGB(nn.Module):
         register_mosaic_stats(self, normalize_mosaic_mean,
                               normalize_mosaic_std, resolve_device(device))
 
-    def forward(self, raw):
+    def forward(self, raw, taps=None):
+        """``taps`` as ``NNProcessing``'s (the ``demosaic`` stage only)."""
         rgb = pack_raw(raw, reduce_size=True, out_channels=3)
+        if taps and "demosaic" in taps:
+            rgb = rgb + taps["demosaic"]
         return normalise_mosaic(self, rgb), {"demosaic": rgb}

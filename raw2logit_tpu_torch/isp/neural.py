@@ -37,10 +37,17 @@ class NNProcessing(nn.Module):
                                   generator=generator)
         self.batch_norm = TorchBatchNorm(3, device=device)
 
-    def forward(self, raw):
+    def forward(self, raw, taps=None):
+        """``taps`` maps stage names to tensors added at that stage (their
+        gradients are the stages' gradients, ``tracking.images``)."""
+        taps = taps or {}
         rgb = normalise_mosaic(self, pack_raw(raw, reduce_size=True,
                                               out_channels=3))
+        if "demosaic" in taps:
+            rgb = rgb + taps["demosaic"]
         stages = {"demosaic": rgb}
         rgb = self.batch_norm(self.model(rgb))
+        if "rgb" in taps:
+            rgb = rgb + taps["rgb"]
         stages["rgb"] = rgb
         return rgb, stages

@@ -95,6 +95,18 @@ class ParametrizedProcessing(nn.Module):
         self.batch_norm = (TorchBatchNorm(3, device=device)
                            if batch_norm_output else None)
 
+    @property
+    def halo_rows(self):
+        """The vertical receptive radius in rows of the eval-mode chain
+        (3x3 debayer, 3x3 sharpening, 5x5 blur; every other stage is
+        pointwise), what ``parallel.spatial`` gives each block of rows;
+        None where the output depends on the whole frame (a train-mode
+        output batch norm) or on the frame's size (the additive layer)."""
+        if ((self.training and self.batch_norm is not None)
+                or self.additive_layer is not None):
+            return None
+        return 4
+
     def kernel_params(self):
         """The parameter dict of the fused ISP kernels (not detached)."""
         return {"black_level": self.black_level,

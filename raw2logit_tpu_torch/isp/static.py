@@ -25,6 +25,18 @@ DEBAYER_CHOICES = ("bilinear", "malvar2004", "menon2007")
 SHARPENING_CHOICES = ("sharpening_filter", "unsharp_masking")
 DENOISING_CHOICES = ("gaussian_denoising", "median_denoising", "fft_denoising")
 
+# Vertical receptive radius (rows) of each stage: bilinear's 3x3 and
+# Malvar's 5x5 stencils; Menon's 5-tap directional filters, the 2-row
+# shift and 5x5 window of its decision (6 rows), and six 3-tap passes of
+# interpolation and refinement after it; the 3x3 sharpening stencil and unsharp
+# masking's 9-tap gaussian; the 5-tap gaussian and 3x3 median. The FFT
+# denoiser transforms the width and colour axes only, so it is row-local.
+DEMOSAIC_HALO = {"bilinear": 1, "malvar2004": 2, "menon2007": 12}
+SHARPENING_HALO = {"sharpening_filter": 1, "unsharp_masking": 4}
+DENOISING_HALO = {"gaussian_denoising": 2, "median_denoising": 1,
+                  "fft_denoising": 0}
+UNBOUNDED_DENOISERS = ("tv_chambolle", "tv_bregman", "bilateral")
+
 
 @dataclasses.dataclass(frozen=True)
 class StaticPipeline:
@@ -41,6 +53,18 @@ class StaticPipeline:
     debayer: str = "bilinear"
     sharpening: str = "unsharp_masking"
     denoising: str = "gaussian_denoising"
+
+    @property
+    def halo_rows(self):
+        """The pipeline's vertical receptive radius in rows (what a block
+        of rows needs above and below it to come out as in the whole
+        frame, ``parallel.spatial``); None for a denoiser whose output
+        depends on the whole frame."""
+        if self.denoising in UNBOUNDED_DENOISERS:
+            return None
+        return (DEMOSAIC_HALO[self.debayer]
+                + SHARPENING_HALO.get(self.sharpening, 0)
+                + DENOISING_HALO.get(self.denoising, 0))
 
     def __call__(self, raw):
         black_level, wb, ccm = self.camera_parameters

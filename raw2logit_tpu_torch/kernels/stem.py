@@ -31,6 +31,7 @@ from torch.autograd.function import once_differentiable
 
 from raw2logit_tpu_torch.kernels.build import load, sm_count
 from raw2logit_tpu_torch.ops.filters import conv2d_f32, full_float32
+from raw2logit_tpu_torch.parallel import distributed
 
 C_OUT, C_IN, K = 64, 3, 7
 TAPS = C_IN * K * K
@@ -408,15 +409,25 @@ class StemTrain(torch.autograd.Function):
     one-pass E[act^2] - E[act]^2 in float64. The backward runs the pool
     backward, dW and (when x needs a gradient) d_x kernels, with dgamma =
     sum d_n xhat and dbeta = sum d_n. The batch statistics get no
-    gradient (they feed only the running-statistics update)."""
+    gradient (they feed only the running-statistics update). Under a
+    process group the float64 sums of the conv forward and of the pool
+    backward are summed over the ranks before they make the statistics
+    and the cotangent's coefficients (dgamma and dbeta stay this rank's
+    share, which the gradient all-reduce adds up)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps):
         act, s1, s2 = stem_conv(x, w)
-        mean, var = batch_stats(s1, s2, act.numel() // C_OUT)
+        n = act.numel() // C_OUT
+        if distributed.active():  # the global batch's statistics
+            tot = distributed.all_reduce_(torch.cat([s1, s2, s1.new_full(
+                (1,), n)]))
+            s1, s2, n = tot[:C_OUT], tot[C_OUT:2 * C_OUT], tot[-1]
+        mean, var = batch_stats(s1, s2, n)
         inv, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
         pooled = stem_bnpool(act, alpha, shift)
         ctx.save_for_backward(x, w, act, gamma, alpha, shift, mean, inv)
+        ctx.n = n
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -426,8 +437,11 @@ class StemTrain(torch.autograd.Function):
         x, w, act, gamma, alpha, shift, mean, inv = ctx.saved_tensors
         d_n, sd, sdx = stem_pool_bwd(act, d_pooled.contiguous(), alpha, shift,
                                      mean, inv)
-        coef = bn_backward_coef(gamma, mean, inv, sd, sdx,
-                                act.numel() // C_OUT)
+        gsd, gsdx = sd, sdx  # dgamma and dbeta keep this rank's share
+        if distributed.active():
+            tot = distributed.all_reduce_(torch.cat([sd, sdx]))
+            gsd, gsdx = tot[:C_OUT], tot[C_OUT:]
+        coef = bn_backward_coef(gamma, mean, inv, gsd, gsdx, ctx.n)
         need_x, need_w, need_g, need_b, _ = ctx.needs_input_grad
         d_w = stem_conv_dw(x, act, d_n, coef) if need_w else None
         d_x = stem_conv_dx(act, d_n, coef, w) if need_x else None

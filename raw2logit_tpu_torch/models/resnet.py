@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from raw2logit_tpu_torch import resolve_device
 from raw2logit_tpu_torch.kernels.stem import stem_eval, stem_train
+from raw2logit_tpu_torch.parallel import distributed
 
 
 class Conv2dSame(nn.Conv2d):
@@ -51,11 +52,18 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     (r = 0.9 r + 0.1 batch), and flax updates the running variance with
     the BIASED batch variance, where torch uses the unbiased one.
     Normalisation (biased batch variance in train mode, running
-    statistics in eval mode) is torch's, which is flax's."""
+    statistics in eval mode) is torch's, which is flax's. Under a process
+    group (``distributed.active()``) the train-mode statistics are the
+    global batch's (``distributed.sync_batch_norm``)."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if distributed.active():
+            y, mean, var, _ = distributed.sync_batch_norm(
+                x, self.weight, self.bias, self.eps)
+            self.update_running(mean, var)
+            return y
         # with momentum 1 torch's op writes the batch mean and the
         # unbiased batch variance into the tensors it is given
         n = x.numel() // x.shape[1]
@@ -160,7 +168,9 @@ class ResNet(nn.Module):
     ``num_classes=None`` builds no ``fc`` (a features-only encoder).
     ``device`` None means cuda (raises when CUDA is missing); the random
     init draws from ``generator`` (a ``torch.Generator`` on that device,
-    seeded 0 when None).
+    seeded 0 when None). On the meta device it is left uninitialised,
+    for a state dict to be assigned to it (``load_state_dict(...,
+    assign=True)``).
 
     ``stem_kernel``: the classifier path (not ``return_features``, which
     needs the pre-pool plane) runs the stem through the fused kernels,
@@ -198,6 +208,8 @@ class ResNet(nn.Module):
             self.layers.append(layer)
         self.fc = (None if num_classes is None
                    else nn.Linear(channels, num_classes, device=device))
+        if device.type == "meta":  # no data to initialise: a state dict
+            return                 # is assigned to it
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
         self.reset_parameters(generator)

@@ -36,6 +36,13 @@ def _safe(s):
     return "".join(c if c.isalnum() or c in "-_." else "_" for c in s)
 
 
+def run_dir(experiment_name, *run_names, root="results/runs"):
+    """The directory of a run (and of its nested runs, ``run_names`` from
+    the outermost), whether or not it exists."""
+    return os.path.join(root, _safe(experiment_name),
+                        *(_safe(n) for n in run_names))
+
+
 class Run:
     def __init__(self, experiment_name, run_name, root="results/runs",
                  parent=None, tracking_uri=None):
@@ -49,8 +56,7 @@ class Run:
         if parent is not None:
             self.dir = os.path.join(parent.dir, _safe(run_name))
         else:
-            self.dir = os.path.join(root, _safe(experiment_name),
-                                    _safe(run_name))
+            self.dir = run_dir(experiment_name, run_name, root=root)
         os.makedirs(self.dir, exist_ok=True)
         self._metrics_fh = None  # opened on the first log_metrics
 

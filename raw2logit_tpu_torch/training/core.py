@@ -20,7 +20,15 @@ into jitted programs, masks and pytrees is PyTorch idiom here:
     SSIM aux kernel (``kernels.SSIMAux``), where the JAX package's staged
     step takes its Pallas kernel;
   * augmentation draws once per step from the step's ``torch.Generator``
-    and is replayed on segmentation masks (``augment.py``).
+    and is replayed on segmentation masks (``augment.py``);
+  * under a process group (``parallel.distributed``) each rank steps on
+    its B/N rows of the global batch and the step computes the
+    single-device step on the global batch: the batch norms' statistics,
+    the losses and the metrics are the global batch's, each rank
+    backpropagates its 1/N share of the global loss, the parameter
+    gradients are summed over the ranks before Adam, and the
+    augmentation draws for the global batch on every rank (the same
+    generator) and keeps this rank's rows of its noise plane.
 
 ``make_staged_train_step`` (the same update split into programs to fit a
 TPU compile budget) and the flat and split optimizer forms (TPU
@@ -38,6 +46,7 @@ import torch
 from raw2logit_tpu_torch import losses as L
 from raw2logit_tpu_torch.augment import get_augmentation
 from raw2logit_tpu_torch.kernels.ssim_aux import SSIMAux
+from raw2logit_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,10 +166,23 @@ def _forward(cfg, processor, classifier, raw, train, generator):
         if generator is None:
             raise ValueError(f"augmentation {cfg.augmentation!r} draws from "
                              f"the step's generator; pass one")
-        draws = aug.draw(generator, rgb)
+        draws = _draw(aug, generator, rgb)
         x = aug.apply(draws, rgb)
     classifier.train(train and not cfg.freeze_classifier)
     return classifier(x), rgb, draws
+
+
+def _draw(aug, generator, rgb):
+    """The augmentation's draws for ``rgb``; under a process group those of
+    the global batch (every rank holding as many rows), with this rank's
+    rows of the per-image draws."""
+    if not distributed.active():
+        return aug.draw(generator, rgb)
+    n = len(rgb) * distributed.world()[1]
+    draws = aug.draw(generator, rgb.new_empty((n,) + tuple(rgb.shape[1:])))
+    lo, hi = distributed.rows(n)
+    return {k: v[lo:hi] if torch.is_tensor(v) else v
+            for k, v in draws.items()}
 
 
 def _task_targets(cfg, logits, y, draws):
@@ -226,11 +248,14 @@ def make_train_step(cfg, processor, classifier):
         loss_aux = torch.zeros((), device=loss.device)
         if aux_fn is not None:
             ref_rgb = _reference_rgb(state, raw)
-            loss_aux = (SSIMAux.apply(ref_rgb, rgb.contiguous(),
-                                      cfg.adv_aux_weight)
-                        if aux_kernel else aux_fn(ref_rgb, rgb))
+            loss_aux = (distributed.batch_mean(SSIMAux.apply(
+                ref_rgb, rgb.contiguous(), cfg.adv_aux_weight), len(rgb))
+                if aux_kernel else aux_fn(ref_rgb, rgb))
             loss = loss + loss_aux
-        loss.backward()
+        distributed.backward(loss)
+        distributed.all_reduce_grads(
+            p for group in state.optimizer.param_groups
+            for p in group["params"])
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()

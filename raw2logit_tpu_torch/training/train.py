@@ -14,12 +14,23 @@ the static ISP (``--processing_mode static``: the pipeline and the
 normalisation in every step, or once over the dataset with
 ``--precompute_static``), the neural ISP (``neural_network``) and the
 identity packing (``none``); a classification dataset trains a ResNet, a
-segmentation dataset (``SyntheticDrone``) a U-Net++. The options that
-later slices port raise ``NotImplementedError`` naming the ROADMAP
-Queue 1 item that ports them.
+segmentation dataset (``SyntheticDrone``) a U-Net++. ``--track_*``
+writes the tracked stages, their gradients, the adversarial differences
+and the predictions under the run's ``results/`` (``tracking.images``).
+
+Data parallelism is one process per device: N processes started with
+``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=<rank>`` join
+a process group (``parallel.distributed.initialize``; NCCL on the card,
+gloo with ``--device cpu``), rank r trains on rows [r B/N, (r + 1) B/N)
+of every global batch of B, the steps compute the single-device step on
+the global batch, and only rank 0 writes the run store, the checkpoints
+and the tracked images. ``--n_devices`` defaults to the group's size.
+The options that later slices port raise ``NotImplementedError`` naming
+the ROADMAP Queue 1 item that ports them.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -36,11 +47,14 @@ from raw2logit_tpu_torch.data import (Loader, PrecomputedRGBView, Subset,
 from raw2logit_tpu_torch.isp import (NNProcessing, ParametrizedProcessing,
                                      RawToRGB, StaticPipeline)
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
-from raw2logit_tpu_torch.tracking import Run
+from raw2logit_tpu_torch.parallel import distributed
+from raw2logit_tpu_torch.tracking import Run, track_images
+from raw2logit_tpu_torch.tracking.run import run_dir
 from raw2logit_tpu_torch.training import checkpoint as ckpt
 from raw2logit_tpu_torch.training.core import (TrainConfig, create_train_state,
                                                make_eval_step,
-                                               make_train_step)
+                                               make_train_step,
+                                               task_loss_fn)
 
 
 def str2bool(s):
@@ -134,13 +148,15 @@ def build_parser():
     p.add_argument("--test_run", action="store_true")
 
     p.add_argument("--n_devices", type=int, default=None,
-                   help="devices to train on (the port trains on one)")
+                   help="devices of the data-parallel group, one process "
+                        "each (default: the group's size, 1 without one)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="task-model compute dtype (ISP always float32)")
     p.add_argument("--use_pallas", action="store_true",
-                   help="the fused ISP kernels (parametrized mode, no stage "
-                        "tracking): ParametrizedProcessing(use_kernel=True)")
+                   help="the fused ISP kernels (parametrized mode; stage "
+                        "tracking runs the plain ISP, as in the JAX "
+                        "package): ParametrizedProcessing(use_kernel=True)")
     p.add_argument("--precompute_static", action="store_true",
                    help="static mode only: run the static pipeline and the "
                         "normalisation over the dataset once and train the "
@@ -175,11 +191,6 @@ def _refuse_unported(args):
     """Raise NotImplementedError for an option that a later slice of the
     port brings, naming the ROADMAP Queue 1 item."""
     unported = (
-        (args.track_processing or args.track_processing_gradients
-         or args.track_save_tensors or args.track_predictions
-         or args.track_every_epoch,
-         "--track_* (tracked images) come with the tracking slice (ROADMAP "
-         "Queue 1 item 11)"),
         (args.classifier_pretrained,
          "--classifier_pretrained (ImageNet weights) comes with ROADMAP "
          "Queue 1 item 11"),
@@ -190,8 +201,6 @@ def _refuse_unported(args):
          "(ROADMAP Queue 1 item 3)"),
         (args.compute_dtype == "bfloat16",
          "--compute_dtype bfloat16 comes with ROADMAP Queue 1 item 11"),
-        (args.n_devices not in (None, 1),
-         "training on several GPUs comes with ROADMAP Queue 1 item 10"),
     )
     for refused, why in unported:
         if refused:
@@ -255,6 +264,9 @@ def build_processor(args, dataset, image_size, device, generator):
     init from ``generator``)."""
     stats = dataset_stats(args.dataset)
     mode = args.processing_mode
+    # stage tracking runs the plain ISP (the JAX package builds its Pallas
+    # ISP only without tracked stages)
+    track = args.track_processing or args.track_processing_gradients
     if mode == "static":
         return _StaticAsModule(_static_pipeline(args, dataset),
                                stats["mean"], stats["std"], device)
@@ -262,8 +274,9 @@ def build_processor(args, dataset, image_size, device, generator):
         return ParametrizedProcessing(
             camera_parameters=dataset.camera_parameters,
             batch_norm_output=True,
+            track_stages=track,
             additive_layer=args.adv_training and args.adv_noise_layer,
-            image_size=image_size, use_kernel=args.use_pallas,
+            image_size=image_size, use_kernel=args.use_pallas and not track,
             device=device)
     # Drone's statistics have no mosaic entries: no normalisation
     mosaic = {"normalize_mosaic_mean": stats.get("mosaic_mean"),
@@ -296,10 +309,70 @@ def _epoch_means(metrics, weights=None):
             for k in metrics[0]}
 
 
+def data_parallel_devices(args, device):
+    """(the group's size, this rank's device). One process per device:
+    without a group, ``--n_devices`` above 1 raises and says how to start
+    the ranks; in a group ``--n_devices`` (default the group's size) must
+    be its size, and each rank holds ``--batch_size`` / size rows."""
+    _, size = distributed.world()
+    n = args.n_devices
+    if (n or 1) > 1 and size == 1:
+        raise ValueError(
+            f"--n_devices {n} trains with one process per device: start {n} "
+            f"processes of this command with COORDINATOR_ADDRESS=<host>:"
+            f"<port> (rank 0's) NUM_PROCESSES={n} PROCESS_ID=<0..{n - 1}> "
+            f"in their environments (the JAX package drives every local "
+            f"chip from one process; torch runs one per GPU)")
+    if n not in (None, size) or args.batch_size % size:
+        raise ValueError(
+            f"the {size} processes of the group each hold --batch_size / "
+            f"{size} rows: give a --batch_size that is a multiple of {size} "
+            f"and --n_devices {size} (or none), not --batch_size "
+            f"{args.batch_size} with --n_devices {n}")
+    return size, (distributed.device(device.type) if size > 1 else device)
+
+
+def _track(args, cfg, state, loader, save_loc, device):
+    """The tracked stages of ``loader``'s images (``track_images``), on
+    this process alone: nothing is reduced over the group."""
+    if state.processor is None or args.processing_mode == "static":
+        return
+    reference = (state.ref_processor
+                 if cfg.adv_training and args.adv_track_differences else None)
+    with distributed.replicated():
+        track_images(state.processor, state.classifier, task_loss_fn(cfg),
+                     loader, reference=reference,
+                     track_processing=args.track_processing,
+                     track_gradients=args.track_processing_gradients,
+                     track_predictions=args.track_predictions,
+                     save_tensors=args.track_save_tensors,
+                     save_loc=save_loc, device=device)
+
+
+def _validate(eval_step, state, loader, generator, device, size):
+    """Size-weighted means of the eval step's metrics over ``loader``'s
+    global batches, each rank evaluating its rows (a batch with fewer
+    rows than ranks is evaluated whole on every rank)."""
+    val_metrics, val_ns = [], []
+    for raw, y in loader:
+        val_ns.append(len(raw))
+        whole = len(raw) < size
+        with distributed.replicated() if whole else contextlib.nullcontext():
+            if not whole:
+                raw, y = distributed.shard(raw), distributed.shard(y)
+            _, mets = eval_step(state, torch.as_tensor(raw, device=device),
+                                torch.as_tensor(y, device=device), generator)
+        val_metrics.append(mets)
+    return val_metrics, val_ns
+
+
 def run_train(args):
     print(args)
     _refuse_unported(args)
     device = resolve_device(None if args.device == "cuda" else args.device)
+    distributed.initialize(backend="gloo" if device.type == "cpu" else None)
+    _, size = distributed.world()
+    primary = distributed.is_primary()
     training_mode = "adversarial" if args.adv_training else "default"
     dataset = get_dataset(args.dataset)
     print(f"dataset: {type(dataset).__name__}[{len(dataset)}]")
@@ -318,6 +391,8 @@ def run_train(args):
     assert not (args.freeze_processor and args.freeze_classifier), \
         "Likely no parameters to train."
 
+    n_devices, device = data_parallel_devices(args, device)
+    print(f"data mesh: {n_devices} device(s)")
     idxs_kfold = k_fold(dataset, n_splits=args.n_splits, seed=args.seed,
                         train_size=args.train_size)
     image_size = dataset[0][0].shape[0]
@@ -355,8 +430,9 @@ def run_train(args):
         adv_parameters=args.adv_parameters or "all",
         loss_weight=-1.0 if args.adv_training else 1.0)
 
-    parent = Run(args.experiment_name, args.run_name,
-                 tracking_uri=args.tracking_uri)
+    # only the primary writes the run store
+    parent = (Run(args.experiment_name, args.run_name,
+                  tracking_uri=args.tracking_uri) if primary else None)
     results = []
 
     for k_iter, (train_indices, valid_indices) in enumerate(idxs_kfold):
@@ -395,23 +471,27 @@ def run_train(args):
             f"--batch_size {args.batch_size}; nothing would train")
         valid_loader = Loader(Subset(dataset, valid_indices), args.batch_size,
                               shuffle=False, drop_last=False)
+        track_loader = Loader(Subset(dataset, list(range(
+            args.track_n_images))), args.batch_size, shuffle=False,
+            drop_last=False)
 
-        run = parent.child(f"{args.run_name}_{k_iter}")
-        if not args.resume:
-            # a fresh run into a reused directory must not append onto an
-            # earlier attempt's metrics
-            stale_metrics = os.path.join(run.dir, "metrics.jsonl")
-            if os.path.exists(stale_metrics):
-                os.remove(stale_metrics)
-        run.log_state_dict(state_dict)
-        run.log_params({"dataset": args.dataset,
-                        "processing_mode": args.processing_mode,
-                        "training_mode": training_mode,
-                        **({"adv_aux_weight": args.adv_aux_weight,
-                            "adv_aux_loss": args.adv_aux_loss}
-                           if args.adv_training else {})})
-        with open(os.path.join(run.dir, "cli.txt"), "w") as fh:
-            fh.write("python " + " ".join(sys.argv) + "\n")
+        run = parent.child(f"{args.run_name}_{k_iter}") if primary else None
+        if primary:
+            if not args.resume:
+                # a fresh run into a reused directory must not append onto
+                # an earlier attempt's metrics
+                stale_metrics = os.path.join(run.dir, "metrics.jsonl")
+                if os.path.exists(stale_metrics):
+                    os.remove(stale_metrics)
+            run.log_state_dict(state_dict)
+            run.log_params({"dataset": args.dataset,
+                            "processing_mode": args.processing_mode,
+                            "training_mode": training_mode,
+                            **({"adv_aux_weight": args.adv_aux_weight,
+                                "adv_aux_loss": args.adv_aux_loss}
+                               if args.adv_training else {})})
+            with open(os.path.join(run.dir, "cli.txt"), "w") as fh:
+                fh.write("python " + " ".join(sys.argv) + "\n")
 
         # the reference processor is the default processor as built (as
         # in the JAX package, --processor_uri loads the trained one only)
@@ -426,7 +506,10 @@ def run_train(args):
         t0 = time.time()
 
         start_epoch = 0
-        ckpt_root = os.path.join(run.dir, "checkpoints")
+        # every rank resumes from the checkpoints rank 0 writes
+        ckpt_root = os.path.join(run_dir(args.experiment_name, args.run_name,
+                                         f"{args.run_name}_{k_iter}"),
+                                 "checkpoints")
         if args.resume and os.path.isdir(ckpt_root):
             epochs_done = sorted(
                 int(m.group(1)) for f in os.listdir(ckpt_root)
@@ -440,30 +523,33 @@ def run_train(args):
         for epoch in range(start_epoch, args.epochs):
             epoch_metrics = []
             for raw, y in train_loader:
+                raw, y = distributed.shard(raw), distributed.shard(y)
                 epoch_metrics.append(train_step(
                     state, torch.as_tensor(raw, device=device),
                     torch.as_tensor(y, device=device), generator))
             train_mets = {f"train_{k}": v
                           for k, v in _epoch_means(epoch_metrics).items()}
-            run.log_metrics(train_mets, step=epoch)
+            if primary:
+                run.log_metrics(train_mets, step=epoch)
 
             if (args.check_val_every_n_epoch > 0
                     and (epoch + 1) % args.check_val_every_n_epoch == 0):
-                val_metrics, val_ns = [], []
-                for raw, y in valid_loader:
-                    _, mets = eval_step(
-                        state, torch.as_tensor(raw, device=device),
-                        torch.as_tensor(y, device=device), generator)
-                    val_metrics.append(mets)
-                    val_ns.append(len(raw))
+                val_metrics, val_ns = _validate(eval_step, state,
+                                                valid_loader, generator,
+                                                device, size)
                 # size-weighted: the ragged last batch counts by its size
                 val_mets = {f"val_{k}": v for k, v in
                             _epoch_means(val_metrics, val_ns).items()}
-                run.log_metrics(val_mets, step=epoch)
+                if primary:
+                    run.log_metrics(val_mets, step=epoch)
                 print(f"[fold {k_iter}] epoch {epoch + 1}/{args.epochs} "
                       f"{train_mets} {val_mets}")
 
-            if (args.checkpoint_every_n_epochs
+            if primary and args.track_processing and args.track_every_epoch:
+                _track(args, cfg, state, track_loader, run.artifact_dir(
+                    "results", f"epoch_{epoch + 1:04d}"), device)
+
+            if (primary and args.checkpoint_every_n_epochs
                     and (epoch + 1) % args.checkpoint_every_n_epochs == 0):
                 ckpt.save_state(state, os.path.join(
                     ckpt_root, f"epoch_{epoch + 1:04d}.pt"))
@@ -471,7 +557,12 @@ def run_train(args):
         print(f"[fold {k_iter}] trained {args.epochs} epochs "
               f"in {time.time() - t0:.1f}s")
 
-        if args.log_model:
+        if (primary and args.track_processing
+                and not args.track_every_epoch):
+            _track(args, cfg, state, track_loader,
+                   run.artifact_dir("results"), device)
+
+        if primary and args.log_model:
             # per-component files, what --processor_uri / --classifier_uri
             # read; a static run has no processor file
             if processor is not None and processor.state_dict():
@@ -480,7 +571,7 @@ def run_train(args):
             ckpt.save_module(classifier, os.path.join(ckpt_root,
                                                       "classifier.pt"))
 
-        if args.save_locally:
+        if primary and args.save_locally:
             local_dir = os.path.join("saved_models", args.experiment_name,
                                      f"{args.run_name}_{k_iter}")
             ckpt.save_state(state, os.path.join(local_dir, "state.pt"))
@@ -490,16 +581,23 @@ def run_train(args):
 
         results.append({"state": state, "run": run,
                         "valid_indices": valid_indices})
-        run.close()
+        if primary:
+            run.close()
 
-    parent.close()
+    if primary:
+        parent.close()
     return results
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     os.makedirs("results", exist_ok=True)
-    return run_train(args)
+    had_group = torch.distributed.is_initialized()
+    try:
+        return run_train(args)
+    finally:
+        if not had_group:  # leave a group this run joined
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -290,7 +290,7 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--track_processing"], "item 11"),
+    (["--tracking_uri", "http://127.0.0.1:5000"], "item 11"),
     (["--classifier_pretrained"], "item 11"),
     (["--profile"], "item 11"),
     (["--staged_step"], "item 3"),

@@ -96,16 +96,25 @@ def test_figures_cli_resolves_runs(tmp_path, monkeypatch, capsys):
 
 @pytest.fixture
 def cli_setup(tmp_path, monkeypatch):
-    """A 32x32 SyntheticMicroscopy of 6 for the CLI's dataset, two seeded
-    classifiers (ROWS), their --checkpoints_json (plain and as a sweep
-    manifest) and a --state_dict; in a temporary directory."""
+    """A 32x32 SyntheticMicroscopy of 6 for the CLI's dataset, two
+    classifiers (ROWS: a seeded one, then it with its head negated; one
+    random init of ResNet-18, the costliest call here on a loaded CPU),
+    their --checkpoints_json (plain and as a sweep manifest) and a
+    --state_dict; in a temporary directory, with one torch thread (on a
+    loaded CPU the test's many small ops otherwise wait on each other's
+    threads)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(pab, "get_dataset", lambda name, **kw:
                         SyntheticRawClassification(n=6, h=32, w=32, seed=3))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     ckpts = {}
+    model = resnet_model(device="cpu",
+                         generator=torch.Generator().manual_seed(0))
     for i, pip in enumerate(ROWS):
-        model = resnet_model(device="cpu",
-                             generator=torch.Generator().manual_seed(i))
+        if i:
+            with torch.no_grad():
+                model.fc.weight.neg_()
         ckpts[pab.pipeline_name(*pip)] = [save_module(
             model, f"runs/{i}/checkpoints/classifier.pt")]
     with open("state_dict.json", "w") as fh:
@@ -115,8 +124,9 @@ def cli_setup(tmp_path, monkeypatch):
     with open("manifest.json", "w") as fh:
         json.dump({"jobs": [], "checkpoints": ckpts, "state_dicts": {
             "x": [os.path.abspath("state_dict.json")]}}, fh)
-    return ["--dataset_name", "Tiny", "--out_dir", "ab", "--device", "cpu",
-            "--batch_size", "2"]
+    yield ["--dataset_name", "Tiny", "--out_dir", "ab", "--device", "cpu",
+           "--batch_size", "2"]
+    torch.set_num_threads(threads)
 
 
 def test_cli_runs_its_eight_modes_on_the_cpu(cli_setup):

@@ -169,7 +169,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "new = ('isp.static', 'ops.demosaic', 'ops.denoise_extra',\n"
         "       'data.precompute', 'tracking.run', 'serving',\n"
-        "       'models.unetpp', 'isp.neural', 'isp.identity')\n"
+        "       'models.unetpp', 'isp.neural', 'isp.identity', 'app',\n"
+        "       'training.sweep', 'tracking.images', 'parallel.mesh',\n"
+        "       'parallel.distributed', 'parallel.spatial',\n"
+        "       'parallel.pipelines', 'examples.drift_cycle',\n"
+        "       'examples.drift_forensics', 'examples.drift_optimization')\n"
         "assert all(pkg.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'orbax', 'raw2logit_tpu'))\n"
