@@ -73,7 +73,9 @@ line):
    multiples of 1/8 (planted ties in the pool), each kernel on the same
    inputs as its plain version (the pool backward on the kernel's own
    act), dW and d_x also against float64 plain versions (``STEM_*``); two
-   launches bitwise equal.
+   launches bitwise equal. Then the five bfloat16 forms likewise
+   (``BF16_SHAPES``, ``BF16_*``), each also against a float64 witness on
+   the same bfloat16-rounded operands, with the bitwise shares.
 11. stem train: ``make_train_step`` at full ResNet-18 width, B=32, with
    the ISP kernels, one step with ``stem_kernel=True`` against one with
    the plain stem from identical weights (loss, classifier gradients as
@@ -88,6 +90,12 @@ line):
    and B=256 (``BN_*``), its CUDA-event and profiled device ms beside
    nn.BatchNorm2d's, and its reductions over (0, 2, 3) against two stages
    over a (B, C, H W) view.
+13a. bf16 paths: the bfloat16 task models held to the float32 ones under
+   JAX's bfloat16 contract (``BF16_DRIFT_*``, ``BF16_LOSS_REL``): the
+   B=256 classification train step with the stem flag off and on and its
+   eval call (logits float32), the B=32 segmentation and adversarial
+   steps; the flag-on step and eval call are the bfloat16 forms' main
+   path (each launched, no float32 form).
 14. times: CUDA-event times of each kernel, its plain version, its bound
    and, for the stem's convolutions and pool backward, the nearest library
    call (``LIBRARY_CALLS``), of
@@ -95,9 +103,15 @@ line):
    without) and of an adversarial step, at B=32 and B=256.
 15. profile: device time by kernel and the device's idle share of
    ``Predictor.__call__`` and of a train step (each with the fused stem
-   and without), of an adversarial step and of the recompute backward
-   (torch.profiler), at B=32 and B=256; at B=256 beside the device ms of
-   the redesigned kernels as first ported (``FIRST_PORT_DEVICE_MS``).
+   and without), of the bfloat16 train step with the fused stem (the
+   stem's bfloat16 forms), of an adversarial step and of the recompute
+   backward (torch.profiler), at B=32 and B=256; at B=256 beside the
+   device ms of the redesigned kernels as first ported
+   (``FIRST_PORT_DEVICE_MS``).
+15a. bf16 times: CUDA-event ms and peak memory of each bfloat16 step
+   beside its float32 one, and the forms' kernel, plain and library
+   (bfloat16) ms beside their bound (2-byte storage, the bfloat16
+   tensor-core peak) and their device ms from 15.
 16. static gates: the static ISP (no kernel of the port on its path) on
    the card in float32 against the port's own float64 run on the CPU, at
    B=32, 256x256 (SyntheticMicroscopy mosaics at exposures from dark to
@@ -156,11 +170,11 @@ line):
    finite, each diagonal cell equal to its classifier evaluated directly,
    a second invocation computing no cell, --N_runs 1 discarding the A/B
    table.
-27. eval times: the full 12 x 12 A/B table and one row of the C table on
-   940 SyntheticMicroscopy mosaics (the valid split, 188 images) at
-   B = 32 and 256, the wall seconds split into precomputes and cell
-   programs, the C cells' images/s at severity 3, peak memory; profiles
-   of the identity cell and of one precompute. No kernel of the port
+27. eval times: the full 12 x 12 A/B table (its first 2 rows at 256) and
+   one row of the C table on 940 SyntheticMicroscopy mosaics (the valid
+   split, 188 images) at B = 32 and 256, the wall seconds split into
+   precomputes and cell programs, the C cells' images/s at severity 3,
+   peak memory; profiles of the identity cell and of one precompute. No kernel of the port
    launches in 25-27.
 28. examples: the three drivers of ``raw2logit_tpu_torch.examples`` with
    --use_pallas at B = 32 on the CLI's SyntheticMicroscopy (n = 64,
@@ -182,8 +196,11 @@ line):
    [cuda:0, cuda:0] against the unsplit run (malvar2004 + median, the FFT
    denoiser, the eval-mode ISP through kernel 1), and the 12-pipeline
    grid against each pipeline alone.
+32a. bf16 cli: a 5-step --test_run with --compute_dtype bfloat16,
+   --classifier_pretrained (a synthesised weights/resnet18.npz in the JAX
+   package's layout) and --profile, in a temporary directory.
 33. the ``kernels`` line (with each kernel's launches on the segmentation
-   path), then the ``ok`` line.
+   path; the bfloat16 forms as ``<kernel>_bf16``), then the ``ok`` line.
 """
 
 import contextlib
@@ -192,6 +209,7 @@ import gc
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -224,13 +242,14 @@ from raw2logit_tpu_torch.kernels import (
     stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
     stem_conv_dx_reference, stem_conv_reference, stem_pool_bwd,
     stem_pool_bwd_reference, stem_reference, unpack_grads, window_taps)
+from raw2logit_tpu_torch.kernels.stem import rounded
 from raw2logit_tpu_torch.kernels.build import build, kernel_info
 from raw2logit_tpu_torch.isp.static import GAMMA as STATIC_GAMMA
 from raw2logit_tpu_torch.isp.static import camera_stage, filter_stage
 from raw2logit_tpu_torch.ops.color import (adjust_gamma, colour_correction,
                                            white_balance)
 from raw2logit_tpu_torch.ops.demosaic import DEMOSAIC_FNS, menon_decision
-from raw2logit_tpu_torch.ops.filters import full_float32
+from raw2logit_tpu_torch.ops.filters import conv2d_f32, full_float32
 from raw2logit_tpu_torch.ops.mosaic import subtract_black_level_cfa
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
 from raw2logit_tpu_torch.parallel import distributed
@@ -302,10 +321,12 @@ ISP_NAMES = dict(zip(PARAM_NAMES, (
 # ~0.25 and ~0.91 (phase_train checks it)
 INSIDE_CLIPS = (0.02, 0.025)
 
-# Published peaks (NVIDIA data sheets): device-memory bytes/s and
-# non-tensor f32 operations/s; first matching name wins.
-PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# Published peaks (NVIDIA data sheets): device-memory bytes/s, non-tensor
+# f32 operations/s and dense bfloat16 tensor-core operations/s; first
+# matching name wins.
+PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 # Bytes each kernel must move and f32 operations it must do, per pixel
 # (an FMA is 2, a transcendental 1).
 # fused_isp_fwd: read raw 4 B, write RGB 12 B; 174 operations: black
@@ -339,13 +360,21 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 #   the gather, the mask 1, xhat 2, the two sums 3.
 # stem_conv_dw, stem_conv_dx: read act and d_n 8 B and x (or write d_x)
 #   0.75 B; d_a 6, 147 FMA (294).
+# The bfloat16 forms (``*_bf16``) store act, pooled, d_n and the pooled
+# cotangent in 2 bytes (x and d_x stay float32) and do the same operations,
+# bounded by the bfloat16 dense tensor-core peak.
 KERNEL_COST = {"fused_isp_fwd": (16, 174), "fused_isp_fwd_train": (36, 174),
                "fused_isp_bwd_res": (40, 386), "fused_isp_bwd": (20, 515),
                "ssim_aux": (12, 396), "stem_conv_fwd": (4.75, 297),
                "stem_bnpool": (5, 5), "stem_pool_bwd": (9, 12),
-               "stem_conv_dw": (8.75, 300), "stem_conv_dx": (8.75, 300)}
+               "stem_conv_dw": (8.75, 300), "stem_conv_dx": (8.75, 300),
+               "stem_conv_fwd_bf16": (2.75, 297), "stem_bnpool_bf16": (2.5, 5),
+               "stem_pool_bwd_bf16": (4.5, 12),
+               "stem_conv_dw_bf16": (4.75, 300),
+               "stem_conv_dx_bf16": (4.75, 300)}
 STEM_KERNELS = ("stem_conv_fwd", "stem_bnpool", "stem_pool_bwd",
                 "stem_conv_dw", "stem_conv_dx")
+STEM_BF16 = tuple(f"{name}_bf16" for name in STEM_KERNELS)
 # The TPU kernel each CUDA kernel replaces, and its source.
 KERNELS = {
     "fused_isp_fwd": ("raw2logit_tpu/pallas/fused_isp.py:135",
@@ -360,7 +389,8 @@ KERNELS = {
                  "raw2logit_tpu_torch/csrc/ssim_aux.cu"),
     **{name: (f"raw2logit_tpu/pallas/stem.py:{line}",
               "raw2logit_tpu_torch/csrc/stem.cu")
-       for name, line in zip(STEM_KERNELS, (142, 189, 231, 314, 348))},
+       for names in (STEM_KERNELS, STEM_BF16)
+       for name, line in zip(names, (142, 189, 231, 314, 348))},
 }
 # SSIM aux kernel vs its plain version: the value within SSIM_VALUE_REL
 # of the float64 plain version (relative), or within SSIM_F64_FACTOR
@@ -480,13 +510,14 @@ SEG_IOU_TOL, SEG_MASK_TOL = 1e-4, 1e-4
 # at 512, and 1024 would need about twice that); the neural and identity
 # ISP steps (ResNet-18 as built behind them) at B = 32 and B = 256. At
 # B = 32, the mean of 10 calls after 2 warm-ups and a profile of 2 more;
-# above, where a call takes about a second, of BIG_ITERS and 1.
+# above, where a call takes about a second, of BIG_ITERS calls after 1
+# warm-up and a profile of 1.
 SEG_TIMES = (("seg_train", SERVE_BATCH), ("seg_train", 128),
              ("seg_train_remat", BIG_BATCH), ("seg_serve", SERVE_BATCH),
              ("seg_serve", 512), ("neural_train", SERVE_BATCH),
              ("neural_train", BIG_BATCH), ("identity_train", SERVE_BATCH),
              ("identity_train", BIG_BATCH))
-BIG_ITERS = 3
+BIG_ITERS = 2
 NN_BATCH = 4
 # Evaluation (the corruption battery and the A/B and C tables; no kernel
 # of the port on their path). Each transform but jpeg_compression (PIL,
@@ -510,8 +541,9 @@ EVAL_PIPELINE = ("bilinear", "sharpening_filter", "gaussian_denoising")
 # The tables as a user pays for them: SyntheticMicroscopy at the
 # Raw-Microscopy count (SURVEY.md:360), 256x256, the valid split of the
 # CLI's --train_size 0.8 (188 images); ResNet-18 at full width, one fold;
-# the CLI's batch (32) and 256.
-EVAL_N, EVAL_BATCHES = 940, (SERVE_BATCH, BIG_BATCH)
+# the CLI's batch (32) and 256; at 256 the A/B table's first EVAL_BIG_ROWS
+# rows (each row's cells cost what they cost in the full table).
+EVAL_N, EVAL_BATCHES, EVAL_BIG_ROWS = 940, (SERVE_BATCH, BIG_BATCH), 2
 
 
 def emit(obj):
@@ -524,16 +556,19 @@ def check(ok, what):
 
 
 def peaks(kind):
-    for name, bw, ops in PEAKS:
+    for name, bw, ops, bf16_ops in PEAKS:
         if name in kind:
-            return name, bw, ops
-    return "H100 (assumed)", 3.35e12, 67e12
+            return name, bw, ops, bf16_ops
+    return "H100 (assumed)", 3.35e12, 67e12, 989e12
 
 
 def bound(kind, n_pixels, kernel="fused_isp_fwd"):
     """Least time (ms) and what bounds it for ``kernel`` on n pixels (n
-    elements of (B, 3, H, W) for ssim_aux)."""
-    _, bw, ops = peaks(kind)
+    elements of (B, 3, H, W) for ssim_aux); a bfloat16 form's operations
+    at the bfloat16 tensor-core peak."""
+    _, bw, ops, bf16_ops = peaks(kind)
+    if kernel in STEM_BF16:
+        ops = bf16_ops
     bytes_pp, ops_pp = KERNEL_COST[kernel]
     t_bytes = n_pixels * bytes_pp / bw * 1e3
     t_ops = n_pixels * ops_pp / ops * 1e3
@@ -552,6 +587,8 @@ LIBRARY_CALLS = {
                     "without the BN fold",
     "stem_conv_dx": "nearest cuDNN call (aten.convolution_backward), "
                     "without the BN fold"}
+LIBRARY_CALLS.update({f"{name}_bf16": f"{call}, in bfloat16"
+                      for name, call in list(LIBRARY_CALLS.items())})
 
 STEM_WRAPPERS = dict(zip(STEM_KERNELS, (stem_conv, stem_bnpool, stem_pool_bwd,
                                         stem_conv_dw, stem_conv_dx)))
@@ -562,28 +599,34 @@ def reset_counts():
     fused_isp_bwd.launches = fused_isp_bwd.launches_res = 0
     ssim_aux_value_grad.launches = 0
     for fn in STEM_WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
 def counts():
-    """Launches of each kernel since ``reset_counts``."""
+    """Launches of each kernel since ``reset_counts`` (the stem's bfloat16
+    forms under ``<kernel>_bf16``)."""
     return {"fused_isp_fwd": fused_isp.launches,
             "fused_isp_fwd_train": fused_isp_train.launches,
             "fused_isp_bwd_res": fused_isp_bwd.launches_res,
             "fused_isp_bwd": fused_isp_bwd.launches,
             "ssim_aux": ssim_aux_value_grad.launches,
-            **{name: fn.launches for name, fn in STEM_WRAPPERS.items()}}
+            **{name: fn.launches for name, fn in STEM_WRAPPERS.items()},
+            **{f"{name}_bf16": fn.launches_bf16
+               for name, fn in STEM_WRAPPERS.items()}}
 
 
 def launches(fwd=0, fwd_train=0, bwd_res=0, bwd=0, ssim=0, stem_fwd=0,
-             stem_bwd=0):
+             stem_bwd=0, bf16_fwd=0, bf16_bwd=0):
     """An expected ``counts()``: ``stem_fwd`` launches of each forward stem
-    kernel, ``stem_bwd`` of each backward one."""
+    kernel, ``stem_bwd`` of each backward one, and ``bf16_fwd``,
+    ``bf16_bwd`` of their bfloat16 forms."""
     return {"fused_isp_fwd": fwd, "fused_isp_fwd_train": fwd_train,
             "fused_isp_bwd_res": bwd_res, "fused_isp_bwd": bwd,
             "ssim_aux": ssim,
             **{name: stem_fwd if i < 2 else stem_bwd
-               for i, name in enumerate(STEM_KERNELS)}}
+               for i, name in enumerate(STEM_KERNELS)},
+            **{name: bf16_fwd if i < 2 else bf16_bwd
+               for i, name in enumerate(STEM_BF16)}}
 
 
 def processor(device, use_kernel, camera=MICROSCOPY_CAMERA_PARAMS,
@@ -1847,11 +1890,15 @@ def cuda_ms(fn, inputs, iters):
     return start.elapsed_time(end) / iters
 
 
-def train_runner(device, batch, use_kernel=True, stem_kernel=False):
+def train_runner(device, batch, use_kernel=True, stem_kernel=False,
+                 dtype=torch.float32):
     """A train step at ``batch`` through the kernel path (or the plain
-    path), with the fused stem or not: a callable taking and ignoring one
-    argument (for ``cuda_ms``)."""
+    path), with the fused stem or not, the classifier computing in
+    ``dtype``: a callable taking and ignoring one argument (for
+    ``cuda_ms``)."""
     raw, y, proc, clf = train_setup(device, batch)
+    if dtype != torch.float32:
+        clf = bf16_classifier(device, clf, stem_kernel)
     _, c, state, step = train_copy(TrainConfig(lr=TRAIN_LR), proc, clf,
                                    use_kernel)
     c.stem_kernel = stem_kernel
@@ -2014,7 +2061,8 @@ def busy_ms(prof, calls):
     twice)."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and PROFILE_PRIMER not in e.name)
     total, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -2032,8 +2080,9 @@ def trace_losses(prof, launched):
     host event, which say where in the trace the records went missing."""
     from torch.autograd import DeviceType
     events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    recorded = {name: sum(1 for e in device if key in e.name)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and PROFILE_PRIMER not in e.name]
+    recorded = {name: sum(1 for e in device if re.search(key, e.name))
                 for name, key in PROFILE_KEYS.items()}
     lost = {name: [n, recorded[name]] for name, n in launched.items()
             if n != recorded[name]}
@@ -2050,11 +2099,15 @@ def trace_losses(prof, launched):
 
 
 # The profiler now and then drops device records (a port kernel, once a
-# whole session's; late in a long run, the first few ms of a trace): each
-# trace opens PROFILE_SETTLE_S before the first call and stays open
-# PROFILE_SETTLE_S after the device is done, and a trace that lost
-# records is taken again, at most PROFILE_ATTEMPTS times in all.
+# whole trace's; late in a long run, the first device record of each
+# trace, five traces in a row): each trace launches a primer first,
+# torch's own spin kernel (``torch.cuda._sleep``), whose record is the
+# one such a trace loses and which every number leaves out; it opens
+# PROFILE_SETTLE_S before the first call and stays open PROFILE_SETTLE_S
+# after the device is done, and a trace that lost records is taken
+# again, at most PROFILE_ATTEMPTS times in all.
 PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
+PROFILE_PRIMER = "spin_kernel"
 
 
 def profile_calls(fn, arg, calls, warmups=3):
@@ -2070,6 +2123,9 @@ def profile_calls(fn, arg, calls, warmups=3):
         before = counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            if torch.cuda.is_available():
+                torch.cuda._sleep(1000)  # the primer
+                torch.cuda.synchronize()
             time.sleep(PROFILE_SETTLE_S)
             t0 = time.perf_counter()
             for _ in range(calls):
@@ -2086,28 +2142,43 @@ def profile_calls(fn, arg, calls, warmups=3):
     check(not lost, f"{PROFILE_ATTEMPTS} traces lost records: {lost}")
     kernels = sorted(
         ((e.self_device_time_total / 1e3 / calls, e.key, e.count // calls)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and PROFILE_PRIMER not in e.key),
         reverse=True)
     return kernels, busy_ms(prof, calls), wall_ms
 
 
-# Profile keys of the kernels (template instances of the sources; the ISP
-# forward's second argument is its row alignment).
+# Profile keys of the kernels, patterns searched in the profiler's names
+# (template instances of the sources; the ISP forward's second argument is
+# its row alignment; the stem's storage type is the last template
+# argument, float or __nv_bfloat16).
 PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
                 "fused_isp_fwd_train": "fused_isp_fwd_kernel<true,",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
                 "fused_isp_bwd": "fused_isp_bwd_kernel<false>",
                 "ssim_aux": "ssim_aux_kernel",
-                **{name: f"{name}_kernel" for name in STEM_KERNELS}}
+                **{name: f"{name}_kernel<[^>]*float>"
+                   for name in STEM_KERNELS},
+                **{f"{name}_bf16": f"{name}_kernel<[^>]*bfloat16"
+                   for name in STEM_KERNELS}}
+
+
+def port_kernel_ms(kernels):
+    """{kernel: device ms per call} of the port's kernels that a profile's
+    ``kernels`` (ms, name, count) show."""
+    ours = {name: sum(k[0] for k in kernels if re.search(key, k[1]))
+            for name, key in PROFILE_KEYS.items()}
+    return {name: ms for name, ms in ours.items() if ms > 0}
 
 
 def phase_profile(device, pred, trains, advs, pred_stem, trains_stem,
-                  calls=5):
+                  trains_bf16, calls=5):
     """Device time by kernel of ``Predictor.__call__`` and of a train step
-    (each with the fused stem and without), of an adversarial step and of
-    the recompute backward, and the device's idle share of the wall time,
-    at B = 32 and B = 256. Returns {(what, batch): {kernel: device ms per
-    call}}."""
+    (each with the fused stem and without), of the bfloat16 train step
+    with the fused stem (the stem's bfloat16 forms), of an adversarial
+    step and of the recompute backward, and the device's idle share of
+    the wall time, at B = 32 and B = 256. Returns {(what, batch): {kernel:
+    device ms per call}}."""
     params = processor(device, use_kernel=True).kernel_params()
 
     def recompute_bwd(a):
@@ -2116,18 +2187,18 @@ def phase_profile(device, pred, trains, advs, pred_stem, trains_stem,
     found = {}
     for what, fn in (("serve", pred), ("serve_stem", pred_stem),
                      ("train", None), ("train_stem", None),
-                     ("adversarial", None), ("bwd_recompute", recompute_bwd)):
+                     ("train_stem_bf16", None), ("adversarial", None),
+                     ("bwd_recompute", recompute_bwd)):
         for b in (SERVE_BATCH, BIG_BATCH):
             arg = test_mosaics((b, SIZE, SIZE)).to(device)
             if what == "bwd_recompute":
                 with torch.no_grad():
                     arg = arg, (fused_isp(arg, params) * 0.5 + 0.1)
             fn_b = fn or {"train": trains, "train_stem": trains_stem,
+                          "train_stem_bf16": trains_bf16,
                           "adversarial": advs}[what][b]
             kernels, busy, wall_ms = profile_calls(fn_b, arg, calls)
-            ours = {name: sum(k[0] for k in kernels if key in k[1])
-                    for name, key in PROFILE_KEYS.items()}
-            ours = {name: ms for name, ms in ours.items() if ms > 0}
+            ours = port_kernel_ms(kernels)
             emit({"phase": "profile", "what": what, "batch": b,
                   "wall_ms": wall_ms, "device_busy_ms": busy,
                   "kernel_ms_sum": sum(k[0] for k in kernels),
@@ -2143,11 +2214,15 @@ def phase_profile(device, pred, trains, advs, pred_stem, trains_stem,
                     "train": ("fused_isp_fwd_train", "fused_isp_bwd_res"),
                     "train_stem": ("fused_isp_fwd_train",
                                    "fused_isp_bwd_res", *STEM_KERNELS),
+                    "train_stem_bf16": ("fused_isp_fwd_train",
+                                        "fused_isp_bwd_res", *STEM_BF16),
                     "adversarial": ("fused_isp_fwd", "fused_isp_fwd_train",
                                     "fused_isp_bwd_res", "ssim_aux"),
                     "bwd_recompute": ("fused_isp_bwd",)}[what]
-            check(all(n in ours for n in want),
-                  f"the {what} profile shows {want}")
+            check(all(n in ours for n in want) and not (
+                      what == "train_stem_bf16"
+                      and any(n in ours for n in STEM_KERNELS)),
+                  f"the {what} profile shows {want}: {ours}")
             found[what, b] = ours
             del arg
     return found
@@ -2515,9 +2590,7 @@ def profile_without_port_kernels(phase, what, batch, fn, calls, warmups=3):
     (``profile_calls``), emitted as a ``phase`` line: no kernel of the
     port may show in the profile."""
     kernels, busy, wall_ms = profile_calls(fn, None, calls, warmups)
-    ours = {name: sum(k[0] for k in kernels if key in k[1])
-            for name, key in PROFILE_KEYS.items()}
-    ours = {name: ms for name, ms in ours.items() if ms > 0}
+    ours = port_kernel_ms(kernels)
     emit({"phase": phase, "what": what, "batch": batch, "calls": calls,
           "wall_ms": wall_ms, "device_busy_ms": busy,
           "kernel_ms_sum": sum(k[0] for k in kernels),
@@ -2894,23 +2967,22 @@ SEG_TIMED = {
 
 def timed_step(device, what, b):
     """CUDA-event ms of ``what`` at ``b`` (the mean of ``iters`` calls
-    after 2 warm-ups), its launches per call, peak device memory, then its
+    after the warm-ups), its launches per call, peak device memory, then its
     profile over ``profiled`` more calls (device ms by kernel, idle
-    share); ``iters`` and ``profiled`` as SEG_TIMES says."""
+    share); ``iters``, the warm-ups and ``profiled`` as SEG_TIMES says."""
     make, per_call = SEG_TIMED[what]
-    iters, profiled = (10, 2) if b <= SERVE_BATCH else (BIG_ITERS, 1)
+    iters, warm, profiled = ((10, 2, 2) if b <= SERVE_BATCH
+                             else (BIG_ITERS, 1, 1))
     gc.collect()  # the last step's modules and batch, before the peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     run = make(device, b)
     reset_counts()
-    ms = cuda_ms(run, [None, None], iters)
+    ms = cuda_ms(run, [None] * warm, iters)
     seen = counts()
     peak = torch.cuda.max_memory_allocated()
     kernels, busy, wall_ms = profile_calls(run, None, profiled, warmups=0)
-    ours = {name: sum(k[0] for k in kernels if key in k[1])
-            for name, key in PROFILE_KEYS.items()}
-    ours = {name: v for name, v in ours.items() if v > 0}
+    ours = port_kernel_ms(kernels)
     row = {"phase": "seg_times", "what": what, "batch": b, "ms": ms,
            "timed_calls": iters, "profiled_calls": profiled,
            "imgs_per_s": b / ms * 1e3, "peak_memory_gib": peak / 2 ** 30,
@@ -2921,7 +2993,7 @@ def timed_step(device, what, b):
            "port_kernels_device_ms": ours,
            "top_kernels_ms": [[k[1][:70], k[0], k[2]] for k in kernels[:10]]}
     emit(row)
-    want = dict(launches(), **{k: n * (iters + 2)
+    want = dict(launches(), **{k: n * (iters + warm)
                                for k, n in per_call.items()})
     check(seen == want, f"{what} at {b} launched {seen}")
     check(set(ours) == set(per_call), f"the {what} profile shows {ours}")
@@ -3205,7 +3277,8 @@ class InMemory:
 
 def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
     """The tables as a user pays for them, at each of ``batches``: the full
-    A/B table (12 x 12) and the C table of one row (11 x 5) at one fold
+    A/B table (12 x 12; its first EVAL_BIG_ROWS rows above B = 32) and
+    the C table of one row (11 x 5) at one fold
     over 12 seeded ResNet-18s written with ``save_module``, on ``n``
     SyntheticMicroscopy mosaics held in memory, the CLI's valid split.
     Wall seconds split into the precomputes and the cell programs;
@@ -3224,6 +3297,8 @@ def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
             os.path.join(tmp, str(i), "classifier.pt"))]
             for i, p in enumerate(grid)}
         for b in batches:
+            ab_rows = dict(list(ckpts.items())[:None if b <= SERVE_BATCH
+                                               else EVAL_BIG_ROWS])
             ab = ABTesting("SyntheticMicroscopy", batch_size=b, device=device)
             ab.dataset = dataset
             gc.collect()
@@ -3231,6 +3306,7 @@ def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             row = {"phase": "eval_times", "batch": b, "images": n,
+                   "ab_rows": len(ab_rows),
                    "valid_images": len(valid), "dataset_seconds": data_s}
             for table in ("ab", "c"):
                 with recorded(abtesting, "precompute_pipeline_rgb") as pre, \
@@ -3238,7 +3314,7 @@ def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
                         contextlib.redirect_stdout(io.StringIO()):
                     t0 = time.perf_counter()
                     if table == "ab":
-                        ab.ab_make_table(ckpts, valid, os.path.join(
+                        ab.ab_make_table(ab_rows, valid, os.path.join(
                             tmp, f"ab{b}.json"))
                     else:
                         ab.c_make_table(dict([next(iter(ckpts.items()))]),
@@ -3263,7 +3339,8 @@ def phase_eval_times(device, n=EVAL_N, batches=EVAL_BATCHES, rows=None):
             emit(row)
             check(row["launches"] == launches(),
                   f"the tables launched {row['launches']}")
-            check(row["ab_cells"] == len(grid) * 12 and row["c_cells"] == 55,
+            check(row["ab_cells"] == len(ab_rows) * 12
+                  and row["c_cells"] == 55,
                   f"cells computed {row['ab_cells']}, {row['c_cells']}")
             (path,) = next(iter(ckpts.values()))
             clf = ab.load_model(path)
@@ -3883,6 +3960,513 @@ def phase_parallel_helpers(device):
           f"the pipeline grid: {grid_equal}")
 
 
+# ---------------------------------------------------------------------------
+# bfloat16: the stem kernels' bfloat16 forms and the bfloat16 task models
+
+# The bfloat16 forms against their plain versions: act (whose float32
+# value rounds once) bitwise on at least BF16_BITWISE of the elements and
+# within one bfloat16 ulp (``ulps``) on every one; pooled and d_n
+# bitwise (the same float32 arithmetic on the same bfloat16 act, rounded
+# once); the sums within STEM_SUM_TOL; dW and d_x within STEM_GRAD_TOL.
+# Each also against a float64 witness on the same bfloat16-rounded
+# operands: act, pooled and d_n within one ulp (d_n on at least
+# BF16_DN_F64_SHARE of the elements: a ReLU decided at an exact zero in
+# float32 may go the other way in float64), the sums within
+# BF16_SUM_F64_TOL of the channel's sum of |terms|, dW and d_x no further
+# than STEM_F64_FACTOR times the plain version is.
+BF16_BITWISE, BF16_DN_F64_SHARE, BF16_SUM_F64_TOL = 0.99, 0.9999, 1e-4
+# STEM_SHAPES (B = 256 and 32 at 256x256, the shapes that cut the tiles)
+# and B = 1100 at 4x8 (the pool backward's walk across 70,400 planes)
+BF16_SHAPES = (*STEM_SHAPES, (1100, 3, 4, 8))
+# JAX's bfloat16 contract (tests/test_bf16_parity.py): logit drift over
+# each sample's logit spread, median and max; argmax agreement; a step's
+# loss relative to the float32 step's
+BF16_DRIFT_MEDIAN, BF16_DRIFT_MAX, BF16_ARGMAX, BF16_LOSS_REL = (
+    0.02, 0.10, 0.99, 0.05)
+BF16 = torch.bfloat16
+
+
+def ulps(got, want):
+    """|got - want| per element in bfloat16 ulps of the larger magnitude,
+    no smaller than 2^-10 of max |want| (a near-cancelled output is as
+    accurate as its terms, not as its own magnitude)."""
+    g, w = got.double(), want.double()
+    floor = float(w.abs().max()) * 2.0 ** -10
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(max(floor, 1e-30))
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
+def ulp_agreement(got, want):
+    """(share of elements equal, largest ``ulps``) of a bfloat16 tensor
+    and a bfloat16 or float64 one."""
+    return (float((got.double() == want.double()).double().mean()),
+            float(ulps(got, want).max()))
+
+
+def stem_bf16_agreement(x, w, gamma, beta, ties, seed=SEED):
+    """Each bfloat16 form against its plain version and a float64 witness
+    on the same bfloat16-rounded operands (``BF16_*``), as
+    ``stem_agreement`` sets them up. Returns {kernel: (statistics, ok)}."""
+    out = {}
+    act, s1, s2 = stem_conv(x, w, dtype=BF16)
+    act2, s1b, s2b = stem_conv(x, w, dtype=BF16)
+    act_eval, _, _ = stem_conv(x, w, stats=False, dtype=BF16)
+    ra, r1, r2 = stem_conv_reference(x, w, dtype=BF16)
+    x64, w64 = rounded(x, BF16).double(), rounded(w, BF16).double()
+    a64 = conv2d_f32(x64, w64, stride=2, padding=3)
+    share, ulps_p = ulp_agreement(act, ra)
+    share64, _ = ulp_agreement(act, a64.to(BF16))
+    _, ulps64 = ulp_agreement(act, a64)
+    stats = {"max_abs_err": float((act.float() - ra.float()).abs().max()),
+             "bitwise_share_vs_plain": share, "max_ulps_vs_plain": ulps_p,
+             "bitwise_share_vs_float64": share64,
+             "max_ulps_vs_float64": ulps64,
+             "sum_err": sums_err(s1, r1, a64), "sumsq_err": sums_err(
+                 s2, r2, a64 * a64),
+             "sum_err_vs_float64": sums_err(s1, a64.sum((0, 2, 3)), a64),
+             "bitwise_repeat": bool(torch.equal(act, act2)
+                                    and torch.equal(s1, s1b)
+                                    and torch.equal(s2, s2b)),
+             "no_stats_bitwise_equal": bool(torch.equal(act_eval, act))}
+    out["stem_conv_fwd_bf16"] = stats, (
+        share >= BF16_BITWISE and ulps_p <= 1 and share64 >= BF16_BITWISE
+        and ulps64 <= 1
+        and max(stats["sum_err"], stats["sumsq_err"]) <= STEM_SUM_TOL
+        and stats["sum_err_vs_float64"] <= STEM_SUM_TOL
+        and stats["bitwise_repeat"] and stats["no_stats_bitwise_equal"])
+    del act2, act_eval, ra, x64, a64
+    n = act.numel() // 64
+    mean, var = batch_stats(s1, s2, n)
+    inv, alpha, shift = bn_fold(gamma, beta, mean, var)
+    if ties:
+        act = (torch.round(act.float() * 8) / 8).to(BF16)
+    c64 = [t.double()[:, None, None] for t in (alpha, shift, mean, inv)]
+    pooled = stem_bnpool(act, alpha, shift)
+    pooled2 = stem_bnpool(act, alpha, shift)
+    want = stem_bnpool_reference(act, alpha, shift)
+    p64 = torch.nn.functional.max_pool2d(
+        torch.relu(act.double() * c64[0] + c64[1]), 3, 2, padding=1)
+    _, ulps64 = ulp_agreement(pooled, p64)
+    stats = {"max_abs_err": float((pooled.float() - want.float()).abs()
+                                  .max()),
+             "bitwise_equal_to_plain": bool(torch.equal(pooled, want)),
+             "max_ulps_vs_float64": ulps64,
+             "bitwise_repeat": bool(torch.equal(pooled, pooled2))}
+    out["stem_bnpool_bf16"] = stats, (stats["bitwise_equal_to_plain"]
+                                      and ulps64 <= 1
+                                      and stats["bitwise_repeat"])
+    del pooled2, want, p64
+    gen = torch.Generator(x.device).manual_seed(seed)
+    dp = torch.randn(pooled.shape, device=x.device, generator=gen).to(BF16)
+    d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+    d_n2, sd2, sdx2 = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+    rn, rsd, rsdx = stem_pool_bwd_reference(act, dp, alpha, shift, mean, inv)
+    n64, sd64, sdx64 = stem_pool_bwd_reference(
+        act.double(), dp.double(), *(t.double() for t in (
+            alpha, shift, mean, inv)))
+    xhat64 = (act.double() - c64[2]) * c64[3]
+    within = ulps(d_n, n64) <= 1
+    stats = {"max_abs_err": float((d_n.float() - rn.float()).abs().max()),
+             "bitwise_equal_to_plain": bool(torch.equal(d_n, rn)),
+             "sum_err": sums_err(sd, rsd, n64),
+             "sum_xhat_err": sums_err(sdx, rsdx, n64 * xhat64),
+             "share_within_one_ulp_of_float64": float(
+                 within.double().mean()),
+             "sum_err_vs_float64": max(sums_err(sd, sd64, n64),
+                                       sums_err(sdx, sdx64, n64 * xhat64)),
+             "windows_with_positive_ties": window_ties(act.float(), alpha,
+                                                       shift),
+             "bitwise_repeat": bool(torch.equal(d_n, d_n2)
+                                    and torch.equal(sd, sd2)
+                                    and torch.equal(sdx, sdx2))}
+    out["stem_pool_bwd_bf16"] = stats, (
+        stats["bitwise_equal_to_plain"]
+        and max(stats["sum_err"], stats["sum_xhat_err"]) <= STEM_SUM_TOL
+        and stats["share_within_one_ulp_of_float64"] >= BF16_DN_F64_SHARE
+        and stats["sum_err_vs_float64"] <= BF16_SUM_F64_TOL
+        and stats["bitwise_repeat"])
+    del d_n2, rn, n64, xhat64, within
+    coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
+    # the witness contracts the same bfloat16 d_a (formed in float32, as
+    # both versions form it) with the bfloat16-rounded x and w in float64
+    d_a = rounded(bn_input_cotangent(act.float(), d_n.float(), coef),
+                  BF16).double()
+    xb, wb = rounded(x, BF16).double(), rounded(w, BF16).double()
+    b_, _, h, wd = x.shape
+    with full_float32():
+        dw64 = torch.nn.grad.conv2d_weight(xb, (64, 3, 7, 7), d_a, stride=2,
+                                           padding=3)
+        dx64 = torch.nn.grad.conv2d_input((b_, 3, h, wd), wb, d_a, stride=2,
+                                          padding=3)
+    del d_a, xb
+    out["stem_conv_dw_bf16"] = grad_agreement(
+        stem_conv_dw(x, act, d_n, coef), stem_conv_dw(x, act, d_n, coef),
+        stem_conv_dw_reference(x, act, d_n, coef), dw64)
+    out["stem_conv_dx_bf16"] = grad_agreement(
+        stem_conv_dx(act, d_n, coef, w), stem_conv_dx(act, d_n, coef, w),
+        stem_conv_dx_reference(act, d_n, coef, w), dx64)
+    return out
+
+
+def phase_stem_bf16_kernels_vs_plain(device, shapes=BF16_SHAPES):
+    """The five bfloat16 forms against their plain versions and float64
+    witnesses (``stem_bf16_agreement``), on the ISP's outputs and on
+    random inputs with planted ties; returns the largest |kernel - plain|
+    of each."""
+    worst = dict.fromkeys(STEM_BF16, 0.0)
+    w, gamma, beta = stem_params(device)
+    for shape in shapes:
+        for inputs, ties in (("isp", False), ("random", True)):
+            if shape[0] > 1000 and inputs == "isp":
+                continue  # the walk across planes: random inputs suffice
+            x = stem_input(device, shape, inputs)
+            results = stem_bf16_agreement(x, w, gamma, beta, ties)
+            torch.cuda.synchronize()
+            for name, (stats, ok) in results.items():
+                emit({"phase": "stem_bf16_kernels_vs_plain", "kernel": name,
+                      "shape": list(shape), "inputs": inputs,
+                      "planted_ties": ties, **stats})
+                check(ok, f"{name} {shape} {inputs}: {stats}")
+                worst[name] = max(worst[name], stats["max_abs_err"])
+            del x, results
+    return worst
+
+
+def bf16_classifier(device, clf, stem_kernel=False):
+    """A ResNet-18 computing in bfloat16 with ``clf``'s weights."""
+    c = resnet_model("resnet18", fc_out_features=9, dtype=BF16,
+                     device=device, stem_kernel=stem_kernel)
+    c.load_state_dict(clf.state_dict())
+    return c.train(clf.training)
+
+
+def bf16_unetpp(device, net):
+    """The CLI's U-Net++ computing in bfloat16 with ``net``'s weights."""
+    u = UNetPlusPlus(device=device, dtype=BF16)
+    u.load_state_dict(net.state_dict())
+    return u
+
+
+def drift(got, want):
+    """JAX's bfloat16 contract: (median, max) over samples of the largest
+    |got - want| over the sample's logit spread in ``want``, and the
+    argmax agreement."""
+    got, want = got.double().flatten(1), want.double().flatten(1)
+    spread = (want.max(1).values - want.min(1).values).clamp_min(1e-6)
+    rel = (got - want).abs().max(1).values / spread
+    return (float(rel.median()), float(rel.max()),
+            float((got.argmax(1) == want.argmax(1)).double().mean()))
+
+
+def loss_rel(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-6)
+
+
+def phase_bf16_steps(device, batch=BIG_BATCH, small=SERVE_BATCH):
+    """The bfloat16 task models held to the port's float32 ones under JAX's
+    contract: the classification train step at ``batch`` with the stem
+    flag off and on (losses within 5%), its eval call (logits: drift and
+    argmax), and the segmentation and adversarial steps at ``small``
+    (losses within 5%). The flag-on step and its eval call are the
+    bfloat16 forms' main path: counts set to 0 before, read after; returns
+    them."""
+    raw, y, proc, _ = train_setup(device, batch)
+    clf = train_classifier(device, "perturbed")
+    cfg = TrainConfig(lr=TRAIN_LR)
+    main = None
+    with torch.no_grad():  # the eval calls' input: the ISP's eval output
+        rgb = copy.deepcopy(proc).eval()(raw)[0]
+    for flag in (False, True):
+        p, c, state, step = train_copy(cfg, proc, clf)
+        c.stem_kernel = flag
+        with torch.no_grad():
+            want = copy.deepcopy(c).eval()(rgb)
+        loss32 = float(step(state, raw, y)["loss"])
+        del p, c, state, step
+        p = copy.deepcopy(proc)
+        c = bf16_classifier(device, clf, flag)
+        state = create_train_state(cfg, p, c)
+        step = make_train_step(cfg, p, c)
+        torch.cuda.synchronize()
+        reset_counts()
+        loss16 = float(step(state, raw, y)["loss"])
+        c.load_state_dict(clf.state_dict())  # the eval call's weights
+        with torch.no_grad():
+            got = c.eval()(rgb)
+        torch.cuda.synchronize()
+        seen = counts()
+        med, mx, agree = drift(got, want)
+        emit({"phase": "bf16_train_and_eval", "batch": batch,
+              "stem_kernel": flag, "loss_float32": loss32,
+              "loss_bfloat16": loss16, "loss_rel": loss_rel(loss16, loss32),
+              "logits_dtype": str(got.dtype), "drift_median": med,
+              "drift_max": mx, "argmax_agreement": agree,
+              "launches": seen})
+        check(np.isfinite(loss16) and loss_rel(loss16, loss32)
+              < BF16_LOSS_REL, f"bfloat16 step loss {loss16} vs {loss32}")
+        check(got.dtype == torch.float32 and med < BF16_DRIFT_MEDIAN
+              and mx < BF16_DRIFT_MAX and agree >= BF16_ARGMAX,
+              f"bfloat16 eval logits: {med}, {mx}, {agree}")
+        check(seen == launches(fwd_train=1, bwd_res=1, bf16_fwd=2 * flag,
+                               bf16_bwd=int(flag)),
+              f"bfloat16 step and eval launches {seen}")
+        if flag:
+            main = seen
+        del p, c, state, step, got, want
+    del raw, y, proc, clf, rgb
+
+    raw, masks = seg_batch(device, small)
+    sproc, net = seg_modules(device)
+    scfg = TrainConfig(task="segmentation", lr=TRAIN_LR)
+    seg = {}
+    for name, model in (("float32", net), ("bfloat16",
+                                           bf16_unetpp(device, net))):
+        p = copy.deepcopy(sproc)
+        m = copy.deepcopy(model)
+        state = create_train_state(scfg, p, m)
+        seg[name] = float(make_train_step(scfg, p, m)(state, raw, masks)[
+            "loss"])
+    emit({"phase": "bf16_seg_step", "batch": small, "loss": seg,
+          "loss_rel": loss_rel(seg["bfloat16"], seg["float32"])})
+    check(loss_rel(seg["bfloat16"], seg["float32"]) < BF16_LOSS_REL,
+          f"bfloat16 segmentation step {seg}")
+    del raw, masks, sproc, net
+
+    raw, y, aproc, aclf = adv_setup(device, small)
+    adv = {}
+    for name, model in (("float32", aclf),
+                        ("bfloat16", bf16_classifier(device, aclf))):
+        _, _, state, step = adv_copy(adv_config(), aproc, model)
+        mets = step(state, raw, y)
+        adv[name] = {k: float(mets[k]) for k in ("loss", "loss_aux")}
+    emit({"phase": "bf16_adversarial_step", "batch": small, **adv})
+    check(all(loss_rel(adv["bfloat16"][k], adv["float32"][k])
+              < BF16_LOSS_REL for k in ("loss", "loss_aux")),
+          f"bfloat16 adversarial step {adv}")
+    return main
+
+
+def bf16_stem_timings(device, kind, b):
+    """{form: {ms, plain_ms, bound_ms, bound_by, library_ms}} of the five
+    bfloat16 forms at B = ``b``, 256x256, by CUDA events, beside the
+    nearest library call in bfloat16 (which the port never calls)."""
+    x = stem_input(device, (b, 3, SIZE, SIZE), "random")
+    w, gamma, beta = stem_params(device)
+    xb, wb = x.to(BF16), w.to(BF16)
+    with torch.no_grad():
+        act, s1, s2 = stem_conv(x, w, dtype=BF16)
+        n = act.numel() // 64
+        mean, var = batch_stats(s1, s2, n)
+        inv, alpha, shift = bn_fold(gamma, beta, mean, var)
+        pooled = stem_bnpool(act, alpha, shift)
+        dp = torch.randn_like(pooled)
+        d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
+        coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
+        d_a = bn_input_cotangent(act.float(), d_n.float(), coef).to(BF16)
+        r = torch.relu(act.float() * alpha[:, None, None]
+                       + shift[:, None, None]).to(BF16)
+        _, pool_idx = torch.nn.functional.max_pool2d(
+            r, 3, 2, padding=1, return_indices=True)
+    one = [None]
+
+    def cudnn_bwd(mask):
+        return lambda _: torch.ops.aten.convolution_backward(
+            d_a, xb, wb, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1, mask)
+
+    with torch.no_grad():
+        timed = {
+            "stem_conv_fwd_bf16": (
+                lambda _: stem_conv(x, w, dtype=BF16),
+                lambda _: stem_conv_reference(x, w, dtype=BF16),
+                lambda _: torch.nn.functional.conv2d(xb, wb, stride=2,
+                                                     padding=3)),
+            "stem_bnpool_bf16": (
+                lambda _: stem_bnpool(act, alpha, shift),
+                lambda _: stem_bnpool_reference(act, alpha, shift), None),
+            "stem_pool_bwd_bf16": (
+                lambda _: stem_pool_bwd(act, dp, alpha, shift, mean, inv),
+                lambda _: stem_pool_bwd_reference(act, dp, alpha, shift,
+                                                  mean, inv),
+                lambda _: torch.ops.aten.max_pool2d_with_indices_backward(
+                    dp, r, [3, 3], [2, 2], [1, 1], [1, 1], False, pool_idx)),
+            "stem_conv_dw_bf16": (
+                lambda _: stem_conv_dw(x, act, d_n, coef),
+                lambda _: stem_conv_dw_reference(x, act, d_n, coef),
+                cudnn_bwd([False, True, False])),
+            "stem_conv_dx_bf16": (
+                lambda _: stem_conv_dx(act, d_n, coef, w),
+                lambda _: stem_conv_dx_reference(act, d_n, coef, w),
+                cudnn_bwd([True, False, False]))}
+        rows = {}
+        for name, (kernel, plain, library) in timed.items():
+            b_ms, b_by = bound(kind, b * 64 * (SIZE // 2) ** 2, name)
+            rows[name] = {
+                "ms": cuda_ms(kernel, one, 20),
+                "plain_ms": cuda_ms(plain, one, 5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": (None if library is None
+                               else cuda_ms(library, one, 20))}
+    return rows
+
+
+def bf16_runners(device, b, small=SERVE_BATCH):
+    """{step: (float32 runner, bfloat16 runner)}: the classification train
+    step at ``b`` with the stem flag off and on, the segmentation and the
+    adversarial steps at ``small`` (callables for ``cuda_ms``)."""
+    def train(flag, dtype):
+        return train_runner(device, b, stem_kernel=flag, dtype=dtype)
+
+    def seg(bf16):
+        raw, masks = seg_batch(device, small)
+        proc, net = seg_modules(device)
+        net = bf16_unetpp(device, net) if bf16 else net
+        cfg = TrainConfig(task="segmentation", lr=TRAIN_LR)
+        state = create_train_state(cfg, proc, net)
+        step = make_train_step(cfg, proc, net)
+        return lambda _: step(state, raw, masks)
+
+    def adv(bf16):
+        raw, y, proc, clf = adv_setup(device, small)
+        c = bf16_classifier(device, clf) if bf16 else clf
+        _, _, state, step = adv_copy(adv_config(), proc, c)
+        return lambda _: step(state, raw, y)
+
+    return {f"train_{b}": (lambda: train(False, torch.float32),
+                           lambda: train(False, BF16)),
+            f"train_stem_{b}": (lambda: train(True, torch.float32),
+                                lambda: train(True, BF16)),
+            f"seg_train_{small}": (lambda: seg(False), lambda: seg(True)),
+            f"adversarial_{small}": (lambda: adv(False), lambda: adv(True))}
+
+
+def phase_bf16_times(device, kind, device_ms, iters=5):
+    """CUDA-event ms (``iters`` calls after 2 warm-ups) and peak memory of
+    each bfloat16 step beside its float32 one, and the forms' kernel,
+    plain and library ms at B = 32 and 256 beside their device ms in the
+    bfloat16 flag-on train step (``device_ms``, from ``phase_profile``).
+    Returns {batch: the forms' rows}."""
+    for what, pair in bf16_runners(device, BIG_BATCH).items():
+        row = {}
+        for dtype, make in zip(("float32", "bfloat16"), pair):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = make()
+            ms = cuda_ms(run, [None, None], iters)
+            row[dtype] = {"ms": ms, "peak_memory_gib":
+                          torch.cuda.max_memory_allocated() / 2 ** 30}
+            del run
+        emit({"phase": "bf16_step_times", "what": what, **row,
+              "speedup": row["float32"]["ms"] / row["bfloat16"]["ms"]})
+    forms = {}
+    for b in (SERVE_BATCH, BIG_BATCH):
+        forms[b] = bf16_stem_timings(device, kind, b)
+        emit({"phase": "bf16_stem_times", "batch": b, "kernels": forms[b],
+              "device_ms": {n: device_ms["train_stem_bf16", b].get(n)
+                            for n in STEM_BF16}})
+    return forms
+
+
+def flax_path(name):
+    """The flax module path of a port ResNet module name (the inverse of
+    ``convert.resnet_name``): conv1 -> conv_init, layer1.0.conv2 ->
+    layer1_0/Conv_1, layer2.0.downsample.1 -> layer2_0/downsample_bn."""
+    parts, out = name.split("."), []
+    while parts:
+        head = parts.pop(0)
+        if head.startswith("layer"):
+            out.append(f"{head}_{parts.pop(0)}")
+        elif head == "downsample":
+            out.append(("downsample_conv", "downsample_bn")[int(parts.pop(0))])
+        elif not out:
+            out.append({"conv1": "conv_init", "bn1": "bn_init"}.get(head,
+                                                                    head))
+        elif head.startswith("conv"):
+            out.append(f"Conv_{int(head[4:]) - 1}")
+        elif head.startswith("bn"):
+            out.append(f"BatchNorm_{int(head[2:]) - 1}")
+        else:
+            out.append(head)
+    return out
+
+
+def flax_npz(model):
+    """The port's ResNet as the JAX package's converter writes ImageNet
+    weights: {flax path: array}, conv kernels HWIO, fc left out."""
+    flat = {}
+    for key, t in model.state_dict().items():
+        module, leaf = key.rsplit(".", 1)
+        if module.startswith("fc") or leaf == "num_batches_tracked":
+            continue
+        a = t.detach().cpu().float().numpy()
+        coll = "batch_stats" if leaf.startswith("running") else "params"
+        leaf = {"running_mean": "mean", "running_var": "var",
+                "bias": "bias"}.get(leaf, "kernel" if a.ndim == 4
+                                    else "scale")
+        if a.ndim == 4:
+            a = np.transpose(a, (2, 3, 1, 0))
+        flat["/".join([coll, *flax_path(module), leaf])] = a
+    return flat
+
+
+def phase_bf16_cli(device, batch=SERVE_BATCH):
+    """A tiny training-CLI run on the card with --compute_dtype bfloat16,
+    --classifier_pretrained (on a synthesised weights/resnet18.npz in the
+    JAX package's layout) and --profile, in a temporary directory: the
+    classifier trains in bfloat16 from the file's backbone, the trace
+    lands in the run's profile/, the checkpoint is float32."""
+    from raw2logit_tpu_torch.training import train as cli
+    src = classifier(device, SEED + 7)
+    flat = flax_npz(src)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            os.makedirs("weights")
+            np.savez(os.path.join("weights", "resnet18.npz"), **flat)
+            t0 = time.perf_counter()
+            (res,) = cli.main([
+                "--dataset", "SyntheticMicroscopy", "--batch_size",
+                str(batch), "--n_splits", "1", "--use_pallas", "--test_run",
+                "--epochs", "5", "--compute_dtype", "bfloat16",
+                "--classifier_pretrained", "--profile",
+                "--experiment_name", "bf16", "--run_name", "cli"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            trace = os.path.join(res["run"].dir, "profile", "trace.json")
+            trace_bytes = os.path.getsize(trace) if os.path.exists(
+                trace) else 0
+            saved = torch.load(os.path.join(res["run"].dir, "checkpoints",
+                                            "classifier.pt"))
+            metrics = res["run"].read_metrics()
+        finally:
+            os.chdir(cwd)
+    clf = res["state"].classifier
+    got = dict(clf.named_parameters())
+    src_params = dict(src.named_parameters())
+    moved_from_file = max(
+        float((got[n].detach() - src_params[n].detach()).abs().max())
+        for n in got if not n.startswith(("conv1.", "fc.")))
+    stem_init = float((got["conv1.weight"].detach()
+                       - src_params["conv1.weight"].detach()).abs().max())
+    losses = [m["train_loss"] for m in metrics if "train_loss" in m]
+    emit({"phase": "bf16_cli", "seconds": seconds, "train_loss": losses,
+          "classifier_dtype": str(clf.dtype),
+          "backbone_max_abs_from_file": moved_from_file,
+          "conv1_max_abs_from_file": stem_init, "trace_bytes": trace_bytes,
+          "checkpoint_dtypes": sorted({str(v.dtype)
+                                       for v in saved.values()})})
+    check(clf.dtype == BF16, "the CLI's classifier computes in bfloat16")
+    check(len(losses) == 5 and all(np.isfinite(losses)), f"losses {losses}")
+    check(moved_from_file < 5 * 5e-5,
+          f"the backbone starts from the file ({moved_from_file})")
+    check(stem_init > 1e-2, "conv1 keeps its own init")
+    check(trace_bytes > 0, "the profile trace was written")
+    check(all(v.dtype in (torch.float32, torch.int64)
+              for v in saved.values()), "the checkpoint is float32")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -3903,6 +4487,7 @@ def main():
                **phase_train_kernels_vs_plain(device)}
     max_err["ssim_aux"] = phase_ssim_kernel_vs_plain(device)
     max_err.update(phase_stem_kernels_vs_plain(device))
+    max_err.update(phase_stem_bf16_kernels_vs_plain(device))
     lap("kernels_vs_plain")
     serve_launches, pred = phase_serve(device)
     path_launches = {"fused_isp_fwd": serve_launches}
@@ -3918,17 +4503,26 @@ def main():
     _, pred_stem = phase_stem_serve(device)
     phase_bn(device)
     lap("parametrized_paths")
+    # the bfloat16 task models: the forms' main path is the flag-on
+    # bfloat16 train step and its eval call
+    path_launches.update({n: v for n, v in phase_bf16_steps(device).items()
+                          if n in STEM_BF16})
+    lap("bf16_paths")
     batches = (SERVE_BATCH, BIG_BATCH)
     trains = {b: train_runner(device, b) for b in batches}
     trains_stem = {b: train_runner(device, b, stem_kernel=True)
+                   for b in batches}
+    trains_bf16 = {b: train_runner(device, b, stem_kernel=True, dtype=BF16)
                    for b in batches}
     advs = {b: adv_runner(device, b) for b in batches}
     rows = phase_times(device, kind, pred, trains, advs, pred_stem,
                        trains_stem)
     device_ms = phase_profile(device, pred, trains, advs, pred_stem,
-                              trains_stem)
-    del pred, trains, advs, pred_stem, trains_stem
+                              trains_stem, trains_bf16)
+    del pred, trains, advs, pred_stem, trains_stem, trains_bf16
     lap("times_and_profile")
+    bf16_rows = phase_bf16_times(device, kind, device_ms)
+    lap("bf16_times")
     # the static ISP's path, after the parametrized paths' measurements
     phase_static_gates(device)
     lap("static_gates")
@@ -3967,17 +4561,23 @@ def main():
     lap("data_parallel")
     phase_parallel_helpers(device)
     lap("parallel_helpers")
+    # the bfloat16 CLI run, whose --profile opens a trace of its own
+    phase_bf16_cli(device)
+    lap("bf16_cli")
     emit({"phase": "seconds", **seconds})
     entries = []
     for name, (replaces, source) in KERNELS.items():
-        r = rows[SERVE_BATCH]["kernels"][name]
         where = {"fused_isp_fwd": "serve", "fused_isp_bwd": "bwd_recompute",
                  "ssim_aux": "adversarial"}.get(name, "train")
         shape = ([SERVE_BATCH, 3, SIZE, SIZE]
-                 if name == "ssim_aux" or name in STEM_KERNELS
+                 if name == "ssim_aux" or name in STEM_KERNELS + STEM_BF16
                  else [SERVE_BATCH, SIZE, SIZE])
         if name in STEM_KERNELS:
             where = "train_stem"
+        r = rows[SERVE_BATCH]["kernels"].get(name)
+        if name in STEM_BF16:  # the bfloat16 flag-on train step
+            where, r = "train_stem_bf16", bf16_rows[SERVE_BATCH][name]
+        dev_ms = device_ms[where, SERVE_BATCH].get(name)
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[name],
@@ -3989,8 +4589,7 @@ def main():
             # and for the backward the partials' sum and unpacking,
             # included); device_ms: the kernel alone, from the profile of
             # the path that runs it
-            "ms": r["ms"],
-            "device_ms": device_ms[where, SERVE_BATCH].get(name),
+            "ms": r["ms"], "device_ms": dev_ms,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"library_call": LIBRARY_CALLS[name]}

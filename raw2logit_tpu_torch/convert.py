@@ -38,7 +38,7 @@ def isp_state_dict(variables):
     return sd
 
 
-def _resnet_name(flax_path):
+def resnet_name(flax_path):
     """flax module path -> torchvision-style name: conv_init -> conv1,
     bn_init -> bn1, layer{i}_{j} -> layer{i}.{j}, Conv_k -> conv{k+1},
     BatchNorm_k -> bn{k+1}, downsample_conv/_bn -> downsample.0/.1."""
@@ -76,11 +76,11 @@ def resnet_state_dict(variables):
     """flax ``ResNet`` variables -> the port's ``ResNet`` state dict (conv
     HWIO -> OIHW, Dense kernel (in, out) -> Linear weight (out, in),
     BN scale/bias/mean/var -> weight/bias/running_mean/running_var).
-    Modules whose names ``_resnet_name`` keeps map by the same rules, so
+    Modules whose names ``resnet_name`` keeps map by the same rules, so
     it also carries the models built around a ResNet (below)."""
     sd = {}
     for path, a in _walk(variables["params"]):
-        name, leaf = _resnet_name(path[:-1]), path[-1]
+        name, leaf = resnet_name(path[:-1]), path[-1]
         if leaf == "kernel":
             a = (np.transpose(a, (3, 2, 0, 1)) if np.ndim(a) == 4
                  else np.transpose(a))
@@ -92,7 +92,7 @@ def resnet_state_dict(variables):
         else:
             raise KeyError(f"unexpected ResNet parameter {'/'.join(path)}")
     for path, a in _walk(variables.get("batch_stats", {})):
-        name = _resnet_name(path[:-1])
+        name = resnet_name(path[:-1])
         sd[f"{name}.running_{path[-1]}"] = _t(a)  # mean, var
         sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -13,7 +13,18 @@
 //   stem_conv_dx_kernel    <- _conv_dxs_kernel      d_x
 // Shapes: x (B, 3, H, W), w (64, 3, 7, 7) OIHW, act and d_n (B, 64, Ho, Wo)
 // with Ho = H / 2, Wo = W / 2, pooled (B, 64, Ho / 2, Wo / 2); H and W are
-// multiples of 4 (the wrapper checks). All f32, planar, contiguous.
+// multiples of 4 (the wrapper checks). All planar, contiguous.
+//
+// Each kernel is a template on T, the storage type of act, pooled, d_n and
+// the pooled cotangent: float, or __nv_bfloat16 for the bfloat16 forms,
+// which compute what the TPU kernels compute with compute_dtype=bfloat16
+// (raw2logit_tpu/pallas/stem.py): x and w are rounded to bfloat16 where
+// the convolutions load them, products and sums are float32, act is
+// stored rounded while the statistics come from the float32 accumulator,
+// BN, ReLU and the pool run in float32 on the widened act, d_n is stored
+// rounded while its sums come from the float32 value, and d_a is formed
+// in float32 and rounded to bfloat16 before dW and d_x contract it. x, w,
+// dW, d_x and every sum stay float32 (float64 partials).
 //
 // The TPU kernels' space-to-depth phase planes and selector matrices are
 // workarounds for Mosaic's lack of lane-strided loads; here the strided
@@ -53,6 +64,7 @@
 // argmax are decided on the same values as in the plain version. No fast
 // math.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,6 +87,43 @@ __host__ __device__ constexpr int cdiv(int a, int b) {
 // BN coefficient rows in the coef arrays (each row 64 floats).
 // bnpool: [alpha, beta]; pool_bwd: [alpha, beta, mu, inv];
 // conv_dw / conv_dx: [g1, c1, c2, mu, inv].
+
+using bf16 = __nv_bfloat16;
+
+// Storage conversions: a T widened to float, a float rounded (to nearest
+// even) to T, and a float rounded to T's precision and kept as a float.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Four and two consecutive elements of T, as one aligned access.
+template <typename T>
+struct alignas(4 * sizeof(T)) Vec4 {
+  T v[4];
+};
+template <typename T>
+struct alignas(2 * sizeof(T)) Vec2 {
+  T v[2];
+};
+
+template <typename T>
+__device__ __forceinline__ float4 widen4(const Vec4<T>& q) {
+  return make_float4(to_f32(q.v[0]), to_f32(q.v[1]), to_f32(q.v[2]),
+                     to_f32(q.v[3]));
+}
 
 __device__ __forceinline__ float bn_out(float a, float alpha, float beta) {
   return __fadd_rn(__fmul_rn(a, alpha), beta);
@@ -106,6 +155,39 @@ __device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(in ? 16 : 0)
                : "memory");
+}
+
+// cp.async of BYTES (4, 8 or 16; both addresses so aligned).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(BYTES), "r"(in ? BYTES : 0)
+               : "memory");
+}
+
+// Four elements of T into shared memory (16 or 8 bytes, aligned).
+__device__ __forceinline__ void cp_async_vec4(float* dst, const float* src,
+                                              bool in) {
+  cp_async_f32x4(dst, src, in);
+}
+__device__ __forceinline__ void cp_async_vec4(bf16* dst, const bf16* src,
+                                              bool in) {
+  cp_async_n<8>(dst, src, in);
+}
+
+// One element of T into shared memory, zero where `in` is false: by
+// cp.async for float, by a plain load and store for bfloat16 (cp.async
+// copies at least 4 bytes). Either has landed after the next
+// cp_async_wait and barrier.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src,
+                                          bool in) {
+  cp_async_n<4>(dst, src, in);
+}
+__device__ __forceinline__ void copy_elem(bf16* dst, const bf16* src,
+                                          bool in) {
+  *dst = in ? *src : __float2bfloat16_rn(0.f);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -143,7 +225,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // the sums into its own float64 slots in shared memory once per tile; the
 // CTA reduces the slots once, in a fixed order, into partials[cta].
 // Shared memory: the weights as [tap][64] (37,632 B), two input tiles
-// (61,272 B) and the float64 slots (65,536 B).
+// (61,272 B) and the float64 slots (65,536 B). The bfloat16 form rounds
+// the weights as it stages them and each input value as it loads it into
+// a register, stores act rounded, and sums the float32 accumulators.
 
 constexpr int CF_RPT = 8;              // output rows per thread
 constexpr int CF_CPT = 16;             // channels per thread
@@ -159,9 +243,10 @@ constexpr size_t CF_SMEM =
     (size_t)CF_NV * NTHREADS * sizeof(double) +
     (size_t)(TAPS * C_OUT + 2 * CF_XS) * sizeof(float);
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ act, double* __restrict__ partials,
+                     T* __restrict__ act, double* __restrict__ partials,
                      int B, int H, int W) {
   extern __shared__ __align__(16) double smd[];
   double* st = smd;                    // [CF_NV][NTHREADS]
@@ -179,7 +264,7 @@ stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int i = tid; i < TAPS * C_OUT; i += NTHREADS) {
     const int t = i / C_OUT, o = i % C_OUT;
-    ws[i] = w[o * TAPS + t];
+    ws[i] = round_to<T>(w[o * TAPS + t]);
   }
   if (stats)
     for (int i = 0; i < CF_NV; ++i) st[i * NTHREADS + tid] = 0.0;
@@ -234,7 +319,8 @@ stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           xt + c * CF_IR * CF_IC + (kx & 1) * CF_EV + (kx >> 1);
       float v[2 * CF_RPT + K - 2];
 #pragma unroll
-      for (int r = 0; r < 2 * CF_RPT + K - 2; ++r) v[r] = col[r * CF_IC];
+      for (int r = 0; r < 2 * CF_RPT + K - 2; ++r)
+        v[r] = round_to<T>(col[r * CF_IC]);
       const float4* wk = reinterpret_cast<const float4*>(
           ws + (c * KK + kx) * C_OUT + CF_CPT * cg);
 #pragma unroll
@@ -261,15 +347,15 @@ stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     origin(item, b, oy0, ox0);
     const int ox = ox0 + lane, oyr = oy0 + CF_RPT * rg;
     const bool col_in = ox < Wo;
-    float* ab = act + ((size_t)b * C_OUT + CF_CPT * cg) * Ho * Wo;
+    T* ab = act + ((size_t)b * C_OUT + CF_CPT * cg) * Ho * Wo;
 #pragma unroll
     for (int j = 0; j < CF_CPT; ++j) {
-      float* plane = ab + (size_t)j * Ho * Wo;
+      T* plane = ab + (size_t)j * Ho * Wo;
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
       for (int i = 0; i < CF_RPT; ++i) {
         if (!col_in || oyr + i >= Ho) continue;
-        plane[(size_t)(oyr + i) * Wo + ox] = acc[i][j];
+        plane[(size_t)(oyr + i) * Wo + ox] = from_f32<T>(acc[i][j]);
         s1 += acc[i][j];
         s2 += acc[i][j] * acc[i][j];
       }
@@ -297,11 +383,13 @@ stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // 2. BN (folded alpha, beta), ReLU and maxpool 3x3/2 pad 1: one thread per
 // pooled element; the pad never wins (ReLU output >= 0, and the window's
 // centre is always inside the image). Bytes-bound; the 9 taps overlap
-// between neighbouring threads and come from L1.
+// between neighbouring threads and come from L1. The bfloat16 form widens
+// act, computes in float32 and rounds the window's maximum.
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-stem_bnpool_kernel(const float* __restrict__ act,
-                   const float* __restrict__ coef, float* __restrict__ out,
+stem_bnpool_kernel(const T* __restrict__ act,
+                   const float* __restrict__ coef, T* __restrict__ out,
                    int B, int Ho, int Wo) {
   const int Hq = Ho / 2, Wq = Wo / 2;
   const size_t n = (size_t)B * C_OUT * Hq * Wq;
@@ -311,7 +399,7 @@ stem_bnpool_kernel(const float* __restrict__ act,
     const size_t plane = idx / ((size_t)Wq * Hq);
     const int c = (int)(plane % C_OUT);
     const float alpha = coef[c], beta = coef[C_OUT + c];
-    const float* ap = act + plane * Ho * Wo;
+    const T* ap = act + plane * Ho * Wo;
     float m = 0.f;
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
@@ -321,10 +409,11 @@ stem_bnpool_kernel(const float* __restrict__ act,
       for (int dx = 0; dx < 3; ++dx) {
         const int xx = 2 * j + dx - 1;
         if (xx < 0 || xx >= Wo) continue;
-        m = fmaxf(m, bn_out(__ldg(ap + (size_t)y * Wo + xx), alpha, beta));
+        m = fmaxf(m,
+                  bn_out(to_f32(__ldg(ap + (size_t)y * Wo + xx)), alpha, beta));
       }
     }
-    out[idx] = m;
+    out[idx] = from_f32<T>(m);
   }
 }
 
@@ -371,7 +460,11 @@ stem_bnpool_kernel(const float* __restrict__ act,
 // over the unit's rows; the unit's warp sum (a fixed butterfly) is its
 // partial, so the sums do not depend on the grid. Rows whose width is not
 // a multiple of 4 (Wo % 4 == 2) or misaligned tensors take 4-byte copies
-// and scalar stores (kVec false).
+// and scalar stores (kVec false). The bfloat16 form (T) keeps the same
+// walk: its rows are half as many bytes (8-byte and 4-byte copies; its
+// scalar path loads and stores without cp.async, which copies at least 4
+// bytes), it widens act and the cotangent on reading, and stores d_n
+// rounded while its sums take the float32 values.
 
 constexpr int PB_SW = 128;                // pre-pool columns per strip
 constexpr int PB_CH = 8;                  // window rows per unit
@@ -410,32 +503,23 @@ __device__ __forceinline__ float sel(int id, int t, float d) {
   return id == t ? d : 0.f;
 }
 
-// cp.async of 8 bytes (both addresses 8-byte aligned).
-__device__ __forceinline__ void cp_async_f32x2(float* dst, const float* src,
-                                               bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 8 : 0)
-               : "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <bool kVec>
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(NTHREADS, PB_CTAS)
-stem_pool_bwd_kernel(const float* __restrict__ act,
-                     const float* __restrict__ dp,
-                     const float* __restrict__ coef, float* __restrict__ dn,
+stem_pool_bwd_kernel(const T* __restrict__ act, const T* __restrict__ dp,
+                     const float* __restrict__ coef, T* __restrict__ dn,
                      double* __restrict__ partials, int B, int Ho, int Wo) {
   // each lane's ring: act rows 2k, 2k + 1 and dp row k of PB_S steps
   extern __shared__ __align__(16) float4 pb_ring[];
-  float4 (*ring_a)[2][NTHREADS] =
-      reinterpret_cast<float4 (*)[2][NTHREADS]>(pb_ring);
-  float2 (*ring_d)[NTHREADS] = reinterpret_cast<float2 (*)[NTHREADS]>(
-      pb_ring + PB_S * 2 * NTHREADS);
+  using A4 = Vec4<T>;
+  using D2 = Vec2<T>;
+  A4 (*ring_a)[2][NTHREADS] = reinterpret_cast<A4 (*)[2][NTHREADS]>(pb_ring);
+  D2 (*ring_d)[NTHREADS] = reinterpret_cast<D2 (*)[NTHREADS]>(
+      reinterpret_cast<A4*>(pb_ring) + PB_S * 2 * NTHREADS);
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int Hq = Ho / 2, Wq = Wo / 2;
@@ -456,9 +540,9 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
     const int c = (int)(plane % C_OUT);
     const float alpha = coef[c], beta = coef[C_OUT + c];
     const float mu = coef[2 * C_OUT + c], inv = coef[3 * C_OUT + c];
-    const float* ap = act + (size_t)plane * Ho * Wo;
-    const float* dpp = dp + (size_t)plane * Hq * Wq;
-    float* dnp = dn + (size_t)plane * Ho * Wo;
+    const T* ap = act + (size_t)plane * Ho * Wo;
+    const T* dpp = dp + (size_t)plane * Hq * Wq;
+    T* dnp = dn + (size_t)plane * Ho * Wo;
     const int x0 = strip * PB_SW + 4 * lane;  // the lane's first column
     const int j0 = x0 / 2;                    // its windows j0, j0 + 1
     const bool far_left = lane == 0 && strip > 0;
@@ -473,25 +557,24 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
         const int s = k % PB_S;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float* row = ap + (size_t)(2 * k + h) * Wo;
-          float* dst = reinterpret_cast<float*>(&ring_a[s][h][tid]);
+          const T* row = ap + (size_t)(2 * k + h) * Wo;
+          T* dst = ring_a[s][h][tid].v;
           if (kVec) {
-            cp_async_f32x4(dst, x0 < Wo ? row + x0 : row, x0 < Wo);
+            cp_async_vec4(dst, x0 < Wo ? row + x0 : row, x0 < Wo);
           } else {
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              cp_async_f32(dst + q, x0 + q < Wo ? row + x0 + q : row,
-                           x0 + q < Wo);
+              copy_elem(dst + q, x0 + q < Wo ? row + x0 + q : row,
+                        x0 + q < Wo);
           }
         }
-        const float* drow = dpp + (size_t)k * Wq;
-        float* dst = reinterpret_cast<float*>(&ring_d[s][tid]);
+        const T* drow = dpp + (size_t)k * Wq;
+        T* dst = ring_d[s][tid].v;
         if (kVec) {
-          cp_async_f32x2(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
+          cp_async_n<2 * sizeof(T)>(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
         } else {
-          cp_async_f32(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
-          cp_async_f32(dst + 1, j0 + 1 < Wq ? drow + j0 + 1 : drow,
-                       j0 + 1 < Wq);
+          copy_elem(dst, j0 < Wq ? drow + j0 : drow, j0 < Wq);
+          copy_elem(dst + 1, j0 + 1 < Wq ? drow + j0 + 1 : drow, j0 + 1 < Wq);
         }
       }
       cp_async_commit();
@@ -509,10 +592,10 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
         row.r[q] = x0 + q < Wo ? relu_bn(a[q]) : -1.f;
       }
       const float up = __shfl_up_sync(FULL, row.r[3], 1);
-      const float* src = ap + (size_t)y * Wo + x0;
-      row.left = lane > 0 ? up : far_left ? relu_bn(src[-1]) : -1.f;
-      row.e0 = far_right ? relu_bn(src[4]) : -1.f;
-      row.e1 = far_right ? relu_bn(src[5]) : -1.f;
+      const T* src = ap + (size_t)y * Wo + x0;
+      row.left = lane > 0 ? up : far_left ? relu_bn(to_f32(src[-1])) : -1.f;
+      row.e0 = far_right ? relu_bn(to_f32(src[4])) : -1.f;
+      row.e1 = far_right ? relu_bn(to_f32(src[5])) : -1.f;
     };
     // d_n of row y from the gathered cotangents d (masked where n <= 0);
     // its sums into the unit's.
@@ -528,14 +611,16 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
         s1 += v[q];
         s2 = fmaf(v[q], xhat, s2);
       }
-      float* out = dnp + (size_t)y * Wo;
+      T* out = dnp + (size_t)y * Wo;
       if (kVec && x0 < Wo) {
-        *reinterpret_cast<float4*>(out + x0) = make_float4(v[0], v[1], v[2],
-                                                           v[3]);
+        A4 o4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o4.v[q] = from_f32<T>(v[q]);
+        *reinterpret_cast<A4*>(out + x0) = o4;
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (x0 + q < Wo) out[x0 + q] = v[q];
+          if (x0 + q < Wo) out[x0 + q] = from_f32<T>(v[q]);
       }
       s_dn += (double)s1;
       s_dx += (double)s2;
@@ -568,14 +653,14 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
     } else {
       const int y = 2 * k_first - 1;
       float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float* row = ap + (size_t)y * Wo;
+      const T* row = ap + (size_t)y * Wo;
       if (kVec && x0 < Wo) {
-        a4 = *reinterpret_cast<const float4*>(row + x0);
+        a4 = widen4(*reinterpret_cast<const A4*>(row + x0));
       } else {
-        if (x0 < Wo) a4.x = row[x0];
-        if (x0 + 1 < Wo) a4.y = row[x0 + 1];
-        if (x0 + 2 < Wo) a4.z = row[x0 + 2];
-        if (x0 + 3 < Wo) a4.w = row[x0 + 3];
+        if (x0 < Wo) a4.x = to_f32(row[x0]);
+        if (x0 + 1 < Wo) a4.y = to_f32(row[x0 + 1]);
+        if (x0 + 2 < Wo) a4.z = to_f32(row[x0 + 2]);
+        if (x0 + 3 < Wo) a4.w = to_f32(row[x0 + 3]);
       }
       make_row(y, a4, top);
     }
@@ -590,9 +675,10 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
       PbRow mid, bot;
       if (k < Hq) {
         const int s = k % PB_S;
-        make_row(2 * k, ring_a[s][0][tid], mid);
-        make_row(2 * k + 1, ring_a[s][1][tid], bot);
-        const float2 d = ring_d[s][tid];
+        make_row(2 * k, widen4(ring_a[s][0][tid]), mid);
+        make_row(2 * k + 1, widen4(ring_a[s][1][tid]), bot);
+        const D2 dq = ring_d[s][tid];
+        const float2 d = make_float2(to_f32(dq.v[0]), to_f32(dq.v[1]));
         iA = first_max(top.left, top.r[0], top.r[1], mid.left, mid.r[0],
                        mid.r[1], bot.left, bot.r[0], bot.r[1]);
         iB = first_max(top.r[1], top.r[2], top.r[3], mid.r[1], mid.r[2],
@@ -604,7 +690,7 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
         if (lane == 31) {
           iC = first_max(top.r[3], top.e0, top.e1, mid.r[3], mid.e0, mid.e1,
                          bot.r[3], bot.e0, bot.e1);
-          dC = far_right ? dpp[(size_t)k * Wq + j0 + 2] : 0.f;
+          dC = far_right ? to_f32(dpp[(size_t)k * Wq + j0 + 2]) : 0.f;
         }
       }
       // row 2k - 1: window row k's taps 0, 1, 2, then row k - 1's 6, 7, 8
@@ -654,7 +740,9 @@ stem_pool_bwd_kernel(const float* __restrict__ act,
 // registers, added into the CTA's in shared memory ([value][thread],
 // conflict-free); each half writes its own partials. (One chain per tile,
 // 256 positions, put dW at 72x40 2.0x further from float64 than the
-// plain version.)
+// plain version.) The bfloat16 form stages act and d_n as they are stored
+// (half the bytes, in the same shared slots), rounds d_a as it forms it and
+// each input value as it loads it into a register.
 
 constexpr int DW_TH = 16, DW_TW = 32;     // 512 positions per tile
 constexpr int DW_SR = 2;                  // rows per stage, one per half
@@ -672,15 +760,17 @@ constexpr size_t DW_SMEM =
     (size_t)(DW_SP * DW_DS + 2 * DW_RAW + 2 * DW_XS + 5 * C_OUT + DW_ACC) *
     sizeof(float);
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
-stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
-                    const float* __restrict__ dn,
+stem_conv_dw_kernel(const float* __restrict__ x, const T* __restrict__ act,
+                    const T* __restrict__ dn,
                     const float* __restrict__ coef,
                     float* __restrict__ partials, int B, int H, int W) {
   extern __shared__ __align__(16) float sm[];
   float* das = sm;                        // [DW_SP][DW_DS]
-  float* raw = das + DW_SP * DW_DS;       // [2][act, d_n][C_OUT][DW_RS]
-  float* xs = raw + 2 * DW_RAW;           // [2][C_IN][DW_IR][DW_IC]
+  // [2][act, d_n][C_OUT][DW_RS] of T, in slots sized for float
+  T* raw = reinterpret_cast<T*>(das + DW_SP * DW_DS);
+  float* xs = das + DW_SP * DW_DS + 2 * DW_RAW;  // [2][C_IN][DW_IR][DW_IC]
   float* cf = xs + 2 * DW_XS;             // [5][C_OUT]
   float* sacc = cf + 5 * C_OUT;           // [8 * DW_TB][NTHREADS]
 
@@ -727,30 +817,30 @@ stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
                      in);
       }
     }
-    float* rd = raw + (item & 1) * DW_RAW;
-    const float* ab = act + (size_t)b * C_OUT * Ho * Wo;
-    const float* db = dn + (size_t)b * C_OUT * Ho * Wo;
+    T* rd = raw + (item & 1) * DW_RAW;
+    const T* ab = act + (size_t)b * C_OUT * Ho * Wo;
+    const T* db = dn + (size_t)b * C_OUT * Ho * Wo;
     // rows (tensor, o, stage row) of 32 positions
     if (vec) {
       for (int e = tid; e < 2 * C_OUT * DW_SR * (DW_TW / 4); e += NTHREADS) {
         const int f = e % (DW_TW / 4), row = e / (DW_TW / 4);
         const int sr = row % DW_SR, to = row / DW_SR;  // to = tensor * 64 + o
         const int oy = oy0 + sr, ox = ox0 + 4 * f;
-        const float* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
-                                                        Ho * Wo;
+        const T* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                    Ho * Wo;
         const bool in = oy < Ho && ox < Wo;
-        cp_async_f32x4(rd + to * DW_RS + sr * DW_TW + 4 * f,
-                       in ? src + (size_t)oy * Wo + ox : src, in);
+        cp_async_vec4(rd + to * DW_RS + sr * DW_TW + 4 * f,
+                      in ? src + (size_t)oy * Wo + ox : src, in);
       }
     } else {
       for (int e = tid; e < 2 * C_OUT * DW_SP; e += NTHREADS) {
         const int p = e % DW_SP, to = e / DW_SP;
         const int oy = oy0 + p / DW_TW, ox = ox0 + p % DW_TW;
-        const float* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
-                                                        Ho * Wo;
+        const T* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                    Ho * Wo;
         const bool in = oy < Ho && ox < Wo;
-        cp_async_f32(rd + to * DW_RS + p,
-                     in ? src + (size_t)oy * Wo + ox : src, in);
+        copy_elem(rd + to * DW_RS + p, in ? src + (size_t)oy * Wo + ox : src,
+                  in);
       }
     }
   };
@@ -774,15 +864,15 @@ stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
     {
       // d_a: thread = channel o (tid % 64) x groups of 4 positions
       const int o = tid % C_OUT;
-      const float* ra = raw + (item & 1) * DW_RAW + o * DW_RS;
-      const float* rn = ra + C_OUT * DW_RS;
+      const T* ra = raw + (item & 1) * DW_RAW + o * DW_RS;
+      const T* rn = ra + C_OUT * DW_RS;
       const float g1 = cf[o], c1 = cf[C_OUT + o], c2 = cf[2 * C_OUT + o],
                   mu = cf[3 * C_OUT + o], inv = cf[4 * C_OUT + o];
 #pragma unroll
       for (int k = 0; k < DW_SP / 4 / (NTHREADS / C_OUT); ++k) {
         const int p0 = 4 * (tid / C_OUT + k * (NTHREADS / C_OUT));
-        const float4 a4 = *reinterpret_cast<const float4*>(ra + p0);
-        const float4 n4 = *reinterpret_cast<const float4*>(rn + p0);
+        const float4 a4 = widen4(*reinterpret_cast<const Vec4<T>*>(ra + p0));
+        const float4 n4 = widen4(*reinterpret_cast<const Vec4<T>*>(rn + p0));
         const float av[4] = {a4.x, a4.y, a4.z, a4.w};
         const float nv[4] = {n4.x, n4.y, n4.z, n4.w};
         const bool row_in = oy0 + p0 / DW_TW < Ho;
@@ -790,7 +880,8 @@ stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
         for (int j = 0; j < 4; ++j) {
           const bool in = row_in && ox0 + (p0 + j) % DW_TW < Wo;
           das[(p0 + j) * DW_DS + o] =
-              in ? bn_input_cotangent(av[j], nv[j], g1, c1, c2, mu, inv)
+              in ? round_to<T>(bn_input_cotangent(av[j], nv[j], g1, c1, c2,
+                                                  mu, inv))
                  : 0.f;
         }
       }
@@ -809,7 +900,7 @@ stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
       const float* xp = xrow + 2 * j;
 #pragma unroll
       for (int k = 0; k < DW_TB; ++k) {
-        const float v = xp[off[k]];
+        const float v = round_to<T>(xp[off[k]]);
         tacc[0][k] = fmaf(a0.x, v, tacc[0][k]);
         tacc[1][k] = fmaf(a0.y, v, tacc[1][k]);
         tacc[2][k] = fmaf(a0.z, v, tacc[2][k]);
@@ -866,7 +957,10 @@ stem_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ act,
 // FMAs. Each pixel is summed in three levels whose float32 chains are at
 // most 16 long: a channel's 16 taps, a pass's 16 channels, the 4 passes.
 // Shared: the padded weights as [o][sy][sx][12] (49,152 B) and two chunks
-// of act and d_n (179,200 B).
+// of act and d_n (179,200 B). The bfloat16 form rounds the weights as it
+// stages them, stages act and d_n as they are stored into the second half
+// of the chunk's slot (so that d_a, formed as float32 and rounded, fills
+// the first half without overwriting what other threads still read).
 
 constexpr int DX_TU = 32, DX_TV = 32;     // positions per tile
 constexpr int DX_DR = DX_TU + 3;          // 35 rows of d_a
@@ -880,9 +974,9 @@ constexpr int DX_WS = C_OUT * 16 * 12;    // padded weights
 constexpr size_t DX_SMEM =
     (size_t)(DX_WS + 2 * DX_RAW + 5 * C_OUT) * sizeof(float);
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
-stem_conv_dx_kernel(const float* __restrict__ act,
-                    const float* __restrict__ dn,
+stem_conv_dx_kernel(const T* __restrict__ act, const T* __restrict__ dn,
                     const float* __restrict__ coef,
                     const float* __restrict__ w, float* __restrict__ dx,
                     int B, int H, int W) {
@@ -903,10 +997,19 @@ stem_conv_dx_kernel(const float* __restrict__ act,
     const int o = i / 192, s = (i / 12) % 16, k = i % 12;
     const int c = k / 4, ky = 2 * (s / 4) + (k / 2) % 2 - 1,
               kx = 2 * (s % 4) + k % 2 - 1;
-    ws[i] = (ky >= 0 && kx >= 0) ? w[o * TAPS + c * KK + ky * K + kx] : 0.f;
+    ws[i] = (ky >= 0 && kx >= 0)
+                ? round_to<T>(w[o * TAPS + c * KK + ky * K + kx])
+                : 0.f;
   }
   for (int i = tid; i < 5 * C_OUT; i += NTHREADS) cf[i] = coef[i];
 
+  // a chunk's act and d_n as stored ([act, d_n][DX_CC][DX_PL] of T): for
+  // float the whole slot (d_a is formed in place over act), for bfloat16
+  // its second half
+  auto staged = [&](int item) {
+    return reinterpret_cast<T*>(raw + (item & 1) * DX_RAW +
+                                (sizeof(T) == 4 ? 0 : DX_CC * DX_PL));
+  };
   // item i: channel chunk i % DX_NC of the CTA's tile i / DX_NC
   auto origin = [&](int item, int& b, int& u0, int& v0) {
     const int g = (int)blockIdx.x + (item / DX_NC) * (int)gridDim.x;
@@ -919,28 +1022,27 @@ stem_conv_dx_kernel(const float* __restrict__ act,
     int b, u0, v0;
     origin(item, b, u0, v0);
     const size_t plane0 = (size_t)b * C_OUT + (item % DX_NC) * DX_CC;
-    float* rd = raw + (item & 1) * DX_RAW;
+    T* rd = staged(item);
     // rows (tensor, channel, lr) of the support
     if (vec) {
       for (int e = tid; e < DX_RAW / 4; e += NTHREADS) {
         const int f = e % (DX_RC / 4), row = e / (DX_RC / 4);
         const int lr = row % DX_DR, tc = row / DX_DR;  // tensor * 8 + chan
         const int oy = u0 - 1 + lr, ox = v0 - 4 + 4 * f;
-        const float* src = (tc < DX_CC ? act : dn) +
-                           (plane0 + tc % DX_CC) * Ho * Wo;
+        const T* src = (tc < DX_CC ? act : dn) +
+                       (plane0 + tc % DX_CC) * Ho * Wo;
         const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
-        cp_async_f32x4(rd + 4 * e, in ? src + (size_t)oy * Wo + ox : src,
-                       in);
+        cp_async_vec4(rd + 4 * e, in ? src + (size_t)oy * Wo + ox : src, in);
       }
     } else {
       for (int e = tid; e < DX_RAW; e += NTHREADS) {
         const int col = e % DX_RC, row = e / DX_RC;
         const int lr = row % DX_DR, tc = row / DX_DR;
         const int oy = u0 - 1 + lr, ox = v0 - 4 + col;
-        const float* src = (tc < DX_CC ? act : dn) +
-                           (plane0 + tc % DX_CC) * Ho * Wo;
+        const T* src = (tc < DX_CC ? act : dn) +
+                       (plane0 + tc % DX_CC) * Ho * Wo;
         const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
-        cp_async_f32(rd + e, in ? src + (size_t)oy * Wo + ox : src, in);
+        copy_elem(rd + e, in ? src + (size_t)oy * Wo + ox : src, in);
       }
     }
   };
@@ -963,6 +1065,7 @@ stem_conv_dx_kernel(const float* __restrict__ act,
     origin(item, b, u0, v0);
     const int chunk = item % DX_NC, o0 = chunk * DX_CC;
     float* da = raw + (item & 1) * DX_RAW;
+    const T* sa = staged(item);
 #pragma unroll
     for (int i = 0; i < cdiv(DX_CC * DX_PL / 4, NTHREADS); ++i) {
       const int e = tid + i * NTHREADS;
@@ -970,9 +1073,9 @@ stem_conv_dx_kernel(const float* __restrict__ act,
       const int f = e % (DX_RC / 4), row = e / (DX_RC / 4);
       const int lr = row % DX_DR, o = o0 + row / DX_DR;
       const int oy = u0 - 1 + lr, ox = v0 - 4 + 4 * f;
-      float4* pa = reinterpret_cast<float4*>(da) + e;
-      const float4 a4 = *pa;
-      const float4 n4 = reinterpret_cast<const float4*>(da + DX_CC * DX_PL)[e];
+      const float4 a4 = widen4(reinterpret_cast<const Vec4<T>*>(sa)[e]);
+      const float4 n4 =
+          widen4(reinterpret_cast<const Vec4<T>*>(sa + DX_CC * DX_PL)[e]);
       const float g1 = cf[o], c1 = cf[C_OUT + o], c2 = cf[2 * C_OUT + o],
                   mu = cf[3 * C_OUT + o], inv = cf[4 * C_OUT + o];
       const float av[4] = {a4.x, a4.y, a4.z, a4.w};
@@ -982,9 +1085,11 @@ stem_conv_dx_kernel(const float* __restrict__ act,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         dv[j] = row_in && ox + j >= 0 && ox + j < Wo
-                    ? bn_input_cotangent(av[j], nv[j], g1, c1, c2, mu, inv)
+                    ? round_to<T>(bn_input_cotangent(av[j], nv[j], g1, c1,
+                                                     c2, mu, inv))
                     : 0.f;
-      *pa = make_float4(dv[0], dv[1], dv[2], dv[3]);
+      reinterpret_cast<float4*>(da)[e] = make_float4(dv[0], dv[1], dv[2],
+                                                     dv[3]);
     }
     __syncthreads();
 
@@ -1068,6 +1173,68 @@ int set_smem(F* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The launches of each kernel's form T: each returns the CUDA error of the
+// launch (0 when it was accepted).
+
+template <typename T>
+int launch_conv_fwd(const float* x, const float* w, T* act, double* partials,
+                    int B, int H, int W, int ctas, void* stream) {
+  int err = set_smem(stem_conv_fwd_kernel<T>, CF_SMEM);
+  if (err != 0) return err;
+  stem_conv_fwd_kernel<T><<<ctas, NTHREADS, CF_SMEM, (cudaStream_t)stream>>>(
+      x, w, act, partials, B, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bnpool(const T* act, const float* coef, T* out, int B, int Ho,
+                  int Wo, void* stream) {
+  const size_t n = (size_t)B * C_OUT * (Ho / 2) * (Wo / 2);
+  size_t blocks = (n + NTHREADS - 1) / NTHREADS;
+  if (blocks > 1048576) blocks = 1048576;
+  stem_bnpool_kernel<T><<<(unsigned)blocks, NTHREADS, 0,
+                          (cudaStream_t)stream>>>(act, coef, out, B, Ho, Wo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pool_bwd(const T* act, const T* dp, const float* coef, T* dn,
+                    double* partials, int B, int Ho, int Wo, int ctas,
+                    void* stream) {
+  const bool vec = Wo % 4 == 0 &&
+                   ((uintptr_t)act | (uintptr_t)dn) % (4 * sizeof(T)) == 0 &&
+                   (uintptr_t)dp % (2 * sizeof(T)) == 0;
+  auto kernel =
+      vec ? stem_pool_bwd_kernel<true, T> : stem_pool_bwd_kernel<false, T>;
+  const int err = set_smem(kernel, PB_SMEM);
+  if (err != 0) return err;
+  kernel<<<ctas, NTHREADS, PB_SMEM, (cudaStream_t)stream>>>(
+      act, dp, coef, dn, partials, B, Ho, Wo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_conv_dw(const float* x, const T* act, const T* dn,
+                   const float* coef, float* partials, int B, int H, int W,
+                   int ctas, void* stream) {
+  int err = set_smem(stem_conv_dw_kernel<T>, DW_SMEM);
+  if (err != 0) return err;
+  stem_conv_dw_kernel<T><<<ctas, NTHREADS, DW_SMEM, (cudaStream_t)stream>>>(
+      x, act, dn, coef, partials, B, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_conv_dx(const T* act, const T* dn, const float* coef,
+                   const float* w, float* dx, int B, int H, int W, int ctas,
+                   void* stream) {
+  int err = set_smem(stem_conv_dx_kernel<T>, DX_SMEM);
+  if (err != 0) return err;
+  stem_conv_dx_kernel<T><<<ctas, NTHREADS, DX_SMEM, (cudaStream_t)stream>>>(
+      act, dn, coef, w, dx, B, H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1112,92 +1279,110 @@ int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
   return n < sms ? n : sms;
 }
 
+// `use_bf16` nonzero selects the bfloat16 form: act, pooled, d_n and the pooled
+// cotangent are then __nv_bfloat16 (x, w, coef, dW and d_x stay float).
+
 // partials: [ctas][2][64] float64 (sum, sum of squares), or null to skip
 // the statistics (eval mode).
-int r2l_stem_conv_fwd(const float* x, const float* w, float* act,
+int r2l_stem_conv_fwd(const float* x, const float* w, void* act,
                       double* partials, int B, int H, int W, int ctas,
-                      void* stream) {
-  int err = set_smem(stem_conv_fwd_kernel, CF_SMEM);
-  if (err != 0) return err;
-  stem_conv_fwd_kernel<<<ctas, NTHREADS, CF_SMEM, (cudaStream_t)stream>>>(
-      x, w, act, partials, B, H, W);
-  return (int)cudaGetLastError();
+                      int use_bf16, void* stream) {
+  return use_bf16 ? launch_conv_fwd(x, w, (bf16*)act, partials, B, H, W, ctas,
+                                stream)
+              : launch_conv_fwd(x, w, (float*)act, partials, B, H, W, ctas,
+                                stream);
 }
 
-int r2l_stem_bnpool(const float* act, const float* coef, float* out, int B,
-                    int Ho, int Wo, void* stream) {
-  const size_t n = (size_t)B * C_OUT * (Ho / 2) * (Wo / 2);
-  size_t blocks = (n + NTHREADS - 1) / NTHREADS;
-  if (blocks > 1048576) blocks = 1048576;
-  stem_bnpool_kernel<<<(unsigned)blocks, NTHREADS, 0,
-                       (cudaStream_t)stream>>>(act, coef, out, B, Ho, Wo);
-  return (int)cudaGetLastError();
+int r2l_stem_bnpool(const void* act, const float* coef, void* out, int B,
+                    int Ho, int Wo, int use_bf16, void* stream) {
+  return use_bf16 ? launch_bnpool((const bf16*)act, coef, (bf16*)out, B, Ho,
+                              Wo, stream)
+              : launch_bnpool((const float*)act, coef, (float*)out, B, Ho,
+                              Wo, stream);
 }
 
 // partials: [B * 64][r2l_stem_tiles(1, 2 Ho, 2 Wo)][2] float64 (sum of d_n,
 // sum of d_n xhat), the units of a plane strip-major. Rows of a width that
-// is a multiple of 4, in 16-byte aligned tensors, take 16-byte loads and
-// stores.
-int r2l_stem_pool_bwd(const float* act, const float* dp, const float* coef,
-                      float* dn, double* partials, int B, int Ho, int Wo,
-                      int ctas, void* stream) {
-  const bool vec = Wo % 4 == 0 &&
-                   ((uintptr_t)act | (uintptr_t)dn) % 16 == 0 &&
-                   (uintptr_t)dp % 8 == 0;
-  auto kernel = vec ? stem_pool_bwd_kernel<true> : stem_pool_bwd_kernel<false>;
-  const int err = set_smem(kernel, PB_SMEM);
-  if (err != 0) return err;
-  kernel<<<ctas, NTHREADS, PB_SMEM, (cudaStream_t)stream>>>(
-      act, dp, coef, dn, partials, B, Ho, Wo);
-  return (int)cudaGetLastError();
+// is a multiple of 4, in tensors aligned to four elements (two for the
+// cotangent), take vector loads and stores.
+int r2l_stem_pool_bwd(const void* act, const void* dp, const float* coef,
+                      void* dn, double* partials, int B, int Ho, int Wo,
+                      int ctas, int use_bf16, void* stream) {
+  return use_bf16 ? launch_pool_bwd((const bf16*)act, (const bf16*)dp, coef,
+                                (bf16*)dn, partials, B, Ho, Wo, ctas,
+                                stream)
+              : launch_pool_bwd((const float*)act, (const float*)dp, coef,
+                                (float*)dn, partials, B, Ho, Wo, ctas,
+                                stream);
 }
 
 // partials: [ctas * 2][64][147] (dW in OIHW order per CTA and half).
-int r2l_stem_conv_dw(const float* x, const float* act, const float* dn,
+int r2l_stem_conv_dw(const float* x, const void* act, const void* dn,
                      const float* coef, float* partials, int B, int H, int W,
-                     int ctas, void* stream) {
-  int err = set_smem(stem_conv_dw_kernel, DW_SMEM);
-  if (err != 0) return err;
-  stem_conv_dw_kernel<<<ctas, NTHREADS, DW_SMEM, (cudaStream_t)stream>>>(
-      x, act, dn, coef, partials, B, H, W);
-  return (int)cudaGetLastError();
+                     int ctas, int use_bf16, void* stream) {
+  return use_bf16 ? launch_conv_dw(x, (const bf16*)act, (const bf16*)dn, coef,
+                               partials, B, H, W, ctas, stream)
+              : launch_conv_dw(x, (const float*)act, (const float*)dn, coef,
+                               partials, B, H, W, ctas, stream);
 }
 
-int r2l_stem_conv_dx(const float* act, const float* dn, const float* coef,
+int r2l_stem_conv_dx(const void* act, const void* dn, const float* coef,
                      const float* w, float* dx, int B, int H, int W,
-                     int ctas, void* stream) {
-  int err = set_smem(stem_conv_dx_kernel, DX_SMEM);
-  if (err != 0) return err;
-  stem_conv_dx_kernel<<<ctas, NTHREADS, DX_SMEM, (cudaStream_t)stream>>>(
-      act, dn, coef, w, dx, B, H, W);
-  return (int)cudaGetLastError();
+                     int ctas, int use_bf16, void* stream) {
+  return use_bf16 ? launch_conv_dx((const bf16*)act, (const bf16*)dn, coef, w,
+                               dx, B, H, W, ctas, stream)
+              : launch_conv_dx((const float*)act, (const float*)dn, coef, w,
+                               dx, B, H, W, ctas, stream);
 }
 
 // Kernel `which` of this file (0 conv forward, 1 BN-pool, 2 pool
-// backward, 3 dW, 4 d_x, 5 the pool backward's scalar form): its name,
-// registers per thread, CTAs per SM and shared bytes per CTA
-// (kernel_info.cuh); null past the last or on an error.
+// backward, 3 dW, 4 d_x, 5 the pool backward's scalar form; 6-11 the same
+// in their bfloat16 forms): its name, registers per thread, CTAs per SM
+// and shared bytes per CTA (kernel_info.cuh); null past the last or on an
+// error.
 const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
                             int* smem) {
   switch (which) {
-    case 0: return r2l_occupancy((const void*)stem_conv_fwd_kernel,
+    case 0: return r2l_occupancy((const void*)stem_conv_fwd_kernel<float>,
                                  "stem_conv_fwd_kernel", NTHREADS, CF_SMEM,
                                  regs, ctas_per_sm, smem);
-    case 1: return r2l_occupancy((const void*)stem_bnpool_kernel,
+    case 1: return r2l_occupancy((const void*)stem_bnpool_kernel<float>,
                                  "stem_bnpool_kernel", NTHREADS, 0, regs,
                                  ctas_per_sm, smem);
-    case 2: return r2l_occupancy((const void*)stem_pool_bwd_kernel<true>,
-                                 "stem_pool_bwd_kernel<true>", NTHREADS,
-                                 PB_SMEM, regs, ctas_per_sm, smem);
-    case 3: return r2l_occupancy((const void*)stem_conv_dw_kernel,
+    case 2: return r2l_occupancy(
+        (const void*)stem_pool_bwd_kernel<true, float>,
+        "stem_pool_bwd_kernel<true>", NTHREADS, PB_SMEM, regs, ctas_per_sm,
+        smem);
+    case 3: return r2l_occupancy((const void*)stem_conv_dw_kernel<float>,
                                  "stem_conv_dw_kernel", NTHREADS, DW_SMEM,
                                  regs, ctas_per_sm, smem);
-    case 4: return r2l_occupancy((const void*)stem_conv_dx_kernel,
+    case 4: return r2l_occupancy((const void*)stem_conv_dx_kernel<float>,
                                  "stem_conv_dx_kernel", NTHREADS, DX_SMEM,
                                  regs, ctas_per_sm, smem);
-    case 5: return r2l_occupancy((const void*)stem_pool_bwd_kernel<false>,
-                                 "stem_pool_bwd_kernel<false>", NTHREADS,
-                                 PB_SMEM, regs, ctas_per_sm, smem);
+    case 5: return r2l_occupancy(
+        (const void*)stem_pool_bwd_kernel<false, float>,
+        "stem_pool_bwd_kernel<false>", NTHREADS, PB_SMEM, regs, ctas_per_sm,
+        smem);
+    case 6: return r2l_occupancy((const void*)stem_conv_fwd_kernel<bf16>,
+                                 "stem_conv_fwd_kernel<bf16>", NTHREADS,
+                                 CF_SMEM, regs, ctas_per_sm, smem);
+    case 7: return r2l_occupancy((const void*)stem_bnpool_kernel<bf16>,
+                                 "stem_bnpool_kernel<bf16>", NTHREADS, 0,
+                                 regs, ctas_per_sm, smem);
+    case 8: return r2l_occupancy(
+        (const void*)stem_pool_bwd_kernel<true, bf16>,
+        "stem_pool_bwd_kernel<true, bf16>", NTHREADS, PB_SMEM, regs,
+        ctas_per_sm, smem);
+    case 9: return r2l_occupancy((const void*)stem_conv_dw_kernel<bf16>,
+                                 "stem_conv_dw_kernel<bf16>", NTHREADS,
+                                 DW_SMEM, regs, ctas_per_sm, smem);
+    case 10: return r2l_occupancy((const void*)stem_conv_dx_kernel<bf16>,
+                                  "stem_conv_dx_kernel<bf16>", NTHREADS,
+                                  DX_SMEM, regs, ctas_per_sm, smem);
+    case 11: return r2l_occupancy(
+        (const void*)stem_pool_bwd_kernel<false, bf16>,
+        "stem_pool_bwd_kernel<false, bf16>", NTHREADS, PB_SMEM, regs,
+        ctas_per_sm, smem);
   }
   return nullptr;
 }

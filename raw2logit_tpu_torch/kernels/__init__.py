@@ -6,7 +6,7 @@ attribute (``fused_isp.launches``, ``fused_isp_train.launches``,
 ``fused_isp_bwd.launches_res``, ``fused_isp_bwd.launches``,
 ``ssim_aux_value_grad.launches``, and the stem's ``stem_conv``,
 ``stem_bnpool``, ``stem_pool_bwd``, ``stem_conv_dw`` and ``stem_conv_dx``
-``.launches``). ``FusedISP`` pairs the training forward with the backward
+``.launches``, with ``.launches_bf16`` for their bfloat16 forms). ``FusedISP`` pairs the training forward with the backward
 kernel; ``SSIMAux`` wraps the SSIM aux kernel's value and gradient;
 ``StemTrain`` runs the stem's forward kernels and its three backward
 kernels.

@@ -15,11 +15,21 @@ Contract: x (B, 3, H, W) and the weights (64, 3, 7, 7), both float32, H
 and W multiples of 4 (the pooled plane is (H / 4, W / 4)); the JAX kernels
 need H a multiple of 32. Anything else raises.
 
+Compute dtype (JAX ``compute_dtype``): float32, or bfloat16, in which act,
+pooled, d_n and the pooled cotangent are stored as bfloat16 and every
+kernel runs its bfloat16 form, rounding where the JAX kernels round: x and
+w on the convolutions' loads, act and d_n as stored (their sums from the
+float32 values), d_a before dW and d_x contract it; BN, ReLU and the pool
+compute in float32; dW, d_x and the statistics stay float32. The plain
+versions round at the same points. The dtype of the planes a wrapper is
+given selects the form; any other dtype raises.
+
 Each wrapper launches its kernel on a CUDA tensor (and raises if the
 launch fails) and runs its plain version on a CPU tensor; ``.launches``
-counts kernel launches. The statistics, the pool backward's sums and dW
-are per-CTA (or per-unit) partials summed here in float64, so two launches
-are bitwise equal.
+counts the float32 form's launches, ``.launches_bf16`` the bfloat16
+form's. The statistics, the pool backward's sums and dW are per-CTA (or
+per-unit) partials summed here in float64, so two launches are bitwise
+equal.
 """
 
 import ctypes
@@ -35,6 +45,8 @@ from raw2logit_tpu_torch.parallel import distributed
 
 C_OUT, C_IN, K = 64, 3, 7
 TAPS = C_IN * K * K
+# the storage dtypes of act, pooled, d_n and the pooled cotangent
+DTYPES = (torch.float32, torch.bfloat16)
 # kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes)
 _CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX = range(4)
 
@@ -43,15 +55,38 @@ _CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX = range(4)
 # plain versions
 
 
-def stem_conv_reference(x, w, stats=True):
-    """act = conv(x, w), stride 2, pad 3, in full float32; and, with
-    ``stats``, the per-channel float64 sums of act and act^2 (else
-    None, None)."""
-    act = conv2d_f32(x, w, stride=2, padding=3)
+# The plain versions compute in their inputs' dtype (float32, or float64
+# for a witness); a bfloat16 form widens its bfloat16 planes to float32,
+# rounds where the kernels round and stores bfloat16.
+
+
+def rounded(t, dtype):
+    """``t`` rounded to bfloat16's precision where ``dtype`` is bfloat16,
+    kept in its own dtype; else ``t``."""
+    return t.to(dtype).to(t.dtype) if dtype == torch.bfloat16 else t
+
+
+def stored(t, dtype):
+    """``t`` as a bfloat16 form stores it: bfloat16 where ``dtype`` is."""
+    return t.to(dtype) if dtype == torch.bfloat16 else t
+
+
+def widened(t):
+    """A bfloat16 plane as float32; any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def stem_conv_reference(x, w, stats=True, dtype=torch.float32):
+    """act = conv(x, w), stride 2, pad 3, in full float32 (float64 on
+    float64 inputs) on x and w rounded to ``dtype``, stored as ``dtype``;
+    and, with ``stats``, the per-channel float64 sums of the unrounded act
+    and act^2 (else None, None)."""
+    act = conv2d_f32(rounded(x, dtype), rounded(w, dtype), stride=2,
+                     padding=3)
     if not stats:
-        return act, None, None
+        return stored(act, dtype), None, None
     a = act.double()
-    return act, a.sum((0, 2, 3)), (a * a).sum((0, 2, 3))
+    return stored(act, dtype), a.sum((0, 2, 3)), (a * a).sum((0, 2, 3))
 
 
 def _per_channel(v):
@@ -59,9 +94,10 @@ def _per_channel(v):
 
 
 def stem_bnpool_reference(act, alpha, beta):
-    """maxpool 3x3/2 pad 1 of relu(act * alpha + beta), per channel."""
-    n = act * _per_channel(alpha) + _per_channel(beta)
-    return F.max_pool2d(F.relu(n), 3, 2, padding=1)
+    """maxpool 3x3/2 pad 1 of relu(act * alpha + beta), per channel (a
+    bfloat16 act widened to float32, the result stored bfloat16)."""
+    n = widened(act) * _per_channel(alpha) + _per_channel(beta)
+    return stored(F.max_pool2d(F.relu(n), 3, 2, padding=1), act.dtype)
 
 
 def window_taps(r):
@@ -78,7 +114,11 @@ def stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv):
     beta) and the per-channel float64 sums of d_n and d_n * xhat, with
     xhat = (act - mean) * inv. Each pooling window hands its cotangent to
     its first maximum in tap order (``_argmax_first`` of the JAX
-    package); positions sum what they receive in tap order."""
+    package); positions sum what they receive in tap order. A bfloat16
+    form computes in float32 on act and d_pooled widened and returns d_n
+    bfloat16, its sums those of the float32 d_n."""
+    dtype = act.dtype
+    act, d_pooled = widened(act), widened(d_pooled)
     n = act * _per_channel(alpha) + _per_channel(beta)
     taps = window_taps(F.relu(n))
     best = taps.max(0).values
@@ -95,7 +135,8 @@ def stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv):
     d_n = torch.where(n > 0, d_r[:, :, 1:-1, 1:-1], 0.0)
     xhat = (act - _per_channel(mean)) * _per_channel(inv)
     d64 = d_n.double()
-    return d_n, d64.sum((0, 2, 3)), (d64 * xhat.double()).sum((0, 2, 3))
+    return (stored(d_n, dtype), d64.sum((0, 2, 3)),
+            (d64 * xhat.double()).sum((0, 2, 3)))
 
 
 def bn_input_cotangent(act, d_n, coef):
@@ -107,20 +148,31 @@ def bn_input_cotangent(act, d_n, coef):
     return g1 * ((d_n - c1) - xhat * c2)
 
 
+def _conv_cotangent(act, d_n, coef):
+    """d_a from act and d_n (bfloat16 ones widened, and d_a rounded to
+    bfloat16)."""
+    return rounded(bn_input_cotangent(widened(act), widened(d_n), coef),
+                   act.dtype)
+
+
 def stem_conv_dw_reference(x, act, d_n, coef):
-    """dW (64, 3, 7, 7) of the conv for the cotangent d_a."""
-    d_a = bn_input_cotangent(act, d_n, coef)
+    """dW (64, 3, 7, 7) of the conv for the cotangent d_a (with a bfloat16
+    act, x and d_a rounded to bfloat16 and dW float32)."""
+    d_a = _conv_cotangent(act, d_n, coef)
     with full_float32():
-        return torch.nn.grad.conv2d_weight(x, (C_OUT, C_IN, K, K), d_a,
+        return torch.nn.grad.conv2d_weight(rounded(x, act.dtype),
+                                           (C_OUT, C_IN, K, K), d_a,
                                            stride=2, padding=3)
 
 
 def stem_conv_dx_reference(act, d_n, coef, w):
-    """d_x (B, 3, 2 Ho, 2 Wo) of the conv for the cotangent d_a."""
-    d_a = bn_input_cotangent(act, d_n, coef)
+    """d_x (B, 3, 2 Ho, 2 Wo) of the conv for the cotangent d_a (with a
+    bfloat16 act, d_a and w rounded to bfloat16 and d_x float32)."""
+    d_a = _conv_cotangent(act, d_n, coef)
     b, _, ho, wo = act.shape
     with full_float32():
-        return torch.nn.grad.conv2d_input((b, C_IN, 2 * ho, 2 * wo), w, d_a,
+        return torch.nn.grad.conv2d_input((b, C_IN, 2 * ho, 2 * wo),
+                                          rounded(w, act.dtype), d_a,
                                           stride=2, padding=3)
 
 
@@ -182,22 +234,49 @@ def check_stem_input(x, w):
         raise ValueError(f"conv weight on {w.device}, input on {x.device}")
 
 
-def _on_cuda(*tensors):
-    """True when every tensor is a contiguous float32 CUDA tensor on one
-    device, False when all are on the CPU; raises otherwise."""
+def _check_dtype(dtype):
+    if dtype not in DTYPES:
+        raise NotImplementedError(f"the stem kernels compute in float32 or "
+                                  f"bfloat16, got {dtype}")
+
+
+def _storage(*planes):
+    """The one storage dtype (float32 or bfloat16) of act, d_n and the
+    pooled cotangent; raises on another or on a mix."""
+    dtypes = {t.dtype for t in planes}
+    if len(dtypes) != 1:
+        raise ValueError(f"the stem planes must share a dtype, got "
+                         f"{sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    _check_dtype(dtype)
+    return dtype
+
+
+def _on_cuda(planes, floats):
+    """True when every tensor is a contiguous CUDA tensor on one device,
+    False when all are on the CPU; raises otherwise. ``planes`` share a
+    storage dtype (``_storage``), ``floats`` (x, w, the BN coefficients)
+    are float32."""
+    for t in floats:
+        _check_float32("operand", t)
+    tensors = tuple(planes) + tuple(floats)
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"the stem kernels run on one cuda device or the "
                          f"cpu, got {sorted(map(str, devices))}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"the stem kernels compute in float32, "
-                                      f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the stem kernels need contiguous tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the stem kernels need contiguous tensors")
     return True
+
+
+def _count(fn, dtype):
+    """One launch of ``fn``'s kernel in its ``dtype`` form."""
+    if dtype == torch.float32:
+        fn.launches += 1
+    else:
+        fn.launches_bf16 += 1
 
 
 def _check_plane(name, t, shape):
@@ -216,6 +295,11 @@ def _raise_on(lib, rc, what):
                            + lib.r2l_cuda_error_string(rc).decode())
 
 
+def _bf16(dtype):
+    """The C interface's form flag: 1 for the bfloat16 form."""
+    return int(dtype == torch.bfloat16)
+
+
 def _ctas(lib, kernel, device, shape):
     """Grid of a kernel that walks the tiles (or, the pool backward, the
     units) of input ``shape`` (B, 3, H, W) with a persistent grid
@@ -229,15 +313,16 @@ def _ctas(lib, kernel, device, shape):
 # kernel wrappers
 
 
-def stem_conv(x, w, stats=True):
-    """(act (B, 64, H/2, W/2), float64 sum of act, float64 sum of act^2)
-    per channel; the sums are None without ``stats``. Kernel: CUDA
-    ``stem_conv_fwd_kernel``; plain: ``stem_conv_reference``."""
+def stem_conv(x, w, stats=True, dtype=torch.float32):
+    """(act (B, 64, H/2, W/2) in ``dtype``, float64 sum of act, float64 sum
+    of act^2) per channel; the sums are None without ``stats``. Kernel:
+    CUDA ``stem_conv_fwd_kernel``; plain: ``stem_conv_reference``."""
     check_stem_input(x, w)
-    if not _on_cuda(x, w):
-        return stem_conv_reference(x, w, stats)
+    _check_dtype(dtype)
+    if not _on_cuda((), (x, w)):
+        return stem_conv_reference(x, w, stats, dtype)
     b, _, h, wd = x.shape
-    act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=torch.float32,
+    act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=dtype,
                       device=x.device)
     lib = _library()
     ctas = _ctas(lib, _CONV_FWD, x.device, x.shape)
@@ -246,52 +331,54 @@ def stem_conv(x, w, stats=True):
     rc = lib.r2l_stem_conv_fwd(
         x.data_ptr(), w.data_ptr(), act.data_ptr(),
         None if partials is None else partials.data_ptr(), b, h, wd, ctas,
-        _stream(x))
+        _bf16(dtype), _stream(x))
     _raise_on(lib, rc, "stem_conv_fwd")
-    stem_conv.launches += 1
+    _count(stem_conv, dtype)
     if not stats:
         return act, None, None
     sums = partials.sum(0)
     return act, sums[0], sums[1]
 
 
-stem_conv.launches = 0
+stem_conv.launches = stem_conv.launches_bf16 = 0
 
 
 def stem_bnpool(act, alpha, beta):
     """maxpool 3x3/2 pad 1 of relu(act * alpha + beta): (B, 64, Ho/2,
-    Wo/2). Kernel: CUDA ``stem_bnpool_kernel``; plain:
+    Wo/2) in act's dtype. Kernel: CUDA ``stem_bnpool_kernel``; plain:
     ``stem_bnpool_reference``."""
     b, c, ho, wo = act.shape
     if c != C_OUT or ho % 2 or wo % 2:
         raise ValueError(f"stem_bnpool takes (B, 64, Ho, Wo) with Ho, Wo "
                          f"even, got {tuple(act.shape)}")
-    if not _on_cuda(act, alpha, beta):
+    dtype = _storage(act)
+    if not _on_cuda((act,), (alpha, beta)):
         return stem_bnpool_reference(act, alpha, beta)
-    out = torch.empty((b, C_OUT, ho // 2, wo // 2), dtype=torch.float32,
+    out = torch.empty((b, C_OUT, ho // 2, wo // 2), dtype=dtype,
                       device=act.device)
     coef = _coef((alpha, beta))
     lib = _library()
     rc = lib.r2l_stem_bnpool(act.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                             b, ho, wo, _stream(act))
+                             b, ho, wo, _bf16(dtype), _stream(act))
     _raise_on(lib, rc, "stem_bnpool")
-    stem_bnpool.launches += 1
+    _count(stem_bnpool, dtype)
     return out
 
 
-stem_bnpool.launches = 0
+stem_bnpool.launches = stem_bnpool.launches_bf16 = 0
 
 
 def stem_pool_bwd(act, d_pooled, alpha, beta, mean, inv):
-    """(d_n, float64 sum of d_n, float64 sum of d_n * xhat) per channel.
-    Kernel: CUDA ``stem_pool_bwd_kernel``; plain:
+    """(d_n in act's dtype, float64 sum of d_n, float64 sum of d_n * xhat)
+    per channel. Kernel: CUDA ``stem_pool_bwd_kernel``; plain:
     ``stem_pool_bwd_reference``."""
     b, c, ho, wo = act.shape
     if c != C_OUT or ho % 2 or wo % 2:
         raise ValueError(f"stem_pool_bwd takes act (B, 64, Ho, Wo) with Ho, "
                          f"Wo even, got {tuple(act.shape)}")
     _check_plane("pooled cotangent", d_pooled, (b, C_OUT, ho // 2, wo // 2))
-    if not _on_cuda(act, d_pooled, alpha, beta, mean, inv):
+    dtype = _storage(act, d_pooled)
+    if not _on_cuda((act, d_pooled), (alpha, beta, mean, inv)):
         return stem_pool_bwd_reference(act, d_pooled, alpha, beta, mean, inv)
     lib = _library()
     x_shape = (b, C_IN, 2 * ho, 2 * wo)
@@ -305,30 +392,32 @@ def stem_pool_bwd(act, d_pooled, alpha, beta, mean, inv):
                                coef.data_ptr(), d_n.data_ptr(),
                                partials.data_ptr(), b, ho, wo,
                                _ctas(lib, _POOL_BWD, act.device, x_shape),
-                               _stream(act))
+                               _bf16(dtype), _stream(act))
     _raise_on(lib, rc, "stem_pool_bwd")
-    stem_pool_bwd.launches += 1
+    _count(stem_pool_bwd, dtype)
     sums = partials.sum((0, 2))
     return d_n, sums[:, 0], sums[:, 1]
 
 
-stem_pool_bwd.launches = 0
+stem_pool_bwd.launches = stem_pool_bwd.launches_bf16 = 0
 
 
 def _check_bwd(x_shape, act, d_n):
     b, _, h, wd = x_shape
     _check_plane("act", act, (b, C_OUT, h // 2, wd // 2))
     _check_plane("d_n", d_n, act.shape)
+    return _storage(act, d_n)
 
 
 def stem_conv_dw(x, act, d_n, coef):
-    """dW (64, 3, 7, 7) for d_a = ``bn_input_cotangent(act, d_n, coef)``.
-    Kernel: CUDA ``stem_conv_dw_kernel`` (per-CTA partials summed here in
-    float64); plain: ``stem_conv_dw_reference``."""
+    """dW (64, 3, 7, 7), float32, for d_a = ``bn_input_cotangent(act, d_n,
+    coef)`` (x and d_a rounded to act's dtype). Kernel: CUDA
+    ``stem_conv_dw_kernel`` (per-CTA partials summed here in float64);
+    plain: ``stem_conv_dw_reference``."""
     _check_float32("input", x)
     _check_x_shape(x.shape)
-    _check_bwd(x.shape, act, d_n)
-    if not _on_cuda(x, act, d_n, *coef):
+    dtype = _check_bwd(x.shape, act, d_n)
+    if not _on_cuda((act, d_n), (x, *coef)):
         return stem_conv_dw_reference(x, act, d_n, coef)
     b, _, h, wd = x.shape
     lib = _library()
@@ -339,26 +428,26 @@ def stem_conv_dw(x, act, d_n, coef):
     cf = _coef(coef)
     rc = lib.r2l_stem_conv_dw(x.data_ptr(), act.data_ptr(), d_n.data_ptr(),
                               cf.data_ptr(), partials.data_ptr(), b, h, wd,
-                              ctas, _stream(x))
+                              ctas, _bf16(dtype), _stream(x))
     _raise_on(lib, rc, "stem_conv_dw")
-    stem_conv_dw.launches += 1
+    _count(stem_conv_dw, dtype)
     return (partials.double().sum(0).float()
             .reshape(C_OUT, C_IN, K, K))
 
 
-stem_conv_dw.launches = 0
+stem_conv_dw.launches = stem_conv_dw.launches_bf16 = 0
 
 
 def stem_conv_dx(act, d_n, coef, w):
-    """d_x (B, 3, 2 Ho, 2 Wo) for d_a = ``bn_input_cotangent(act, d_n,
-    coef)``. Kernel: CUDA ``stem_conv_dx_kernel``; plain:
-    ``stem_conv_dx_reference``."""
+    """d_x (B, 3, 2 Ho, 2 Wo), float32, for d_a = ``bn_input_cotangent(act,
+    d_n, coef)`` (d_a and w rounded to act's dtype). Kernel: CUDA
+    ``stem_conv_dx_kernel``; plain: ``stem_conv_dx_reference``."""
     b, _, ho, wo = act.shape
     x_shape = (b, C_IN, 2 * ho, 2 * wo)
     _check_w(w)
     _check_x_shape(x_shape)
-    _check_bwd(x_shape, act, d_n)
-    if not _on_cuda(act, d_n, w, *coef):
+    dtype = _check_bwd(x_shape, act, d_n)
+    if not _on_cuda((act, d_n), (w, *coef)):
         return stem_conv_dx_reference(act, d_n, coef, w)
     d_x = torch.empty(x_shape, dtype=torch.float32, device=act.device)
     lib = _library()
@@ -366,13 +455,14 @@ def stem_conv_dx(act, d_n, coef, w):
     rc = lib.r2l_stem_conv_dx(act.data_ptr(), d_n.data_ptr(), cf.data_ptr(),
                               w.data_ptr(), d_x.data_ptr(), b, 2 * ho,
                               2 * wo, _ctas(lib, _CONV_DX, act.device,
-                                            x_shape), _stream(act))
+                                            x_shape), _bf16(dtype),
+                              _stream(act))
     _raise_on(lib, rc, "stem_conv_dx")
-    stem_conv_dx.launches += 1
+    _count(stem_conv_dx, dtype)
     return d_x
 
 
-stem_conv_dx.launches = 0
+stem_conv_dx.launches = stem_conv_dx.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -403,12 +493,13 @@ def bn_backward_coef(gamma, mean, inv, sd, sdx, n):
 
 
 class StemTrain(torch.autograd.Function):
-    """``apply(x, w, gamma, beta, eps)`` -> (pooled, batch mean, batch
-    variance): the train-mode stem (JAX ``stem_train`` and its VJP). The
-    forward runs the conv and BN-pool kernels; the variance is the biased
-    one-pass E[act^2] - E[act]^2 in float64. The backward runs the pool
-    backward, dW and (when x needs a gradient) d_x kernels, with dgamma =
-    sum d_n xhat and dbeta = sum d_n. The batch statistics get no
+    """``apply(x, w, gamma, beta, eps[, dtype])`` -> (pooled in ``dtype``,
+    batch mean, batch variance): the train-mode stem (JAX ``stem_train``
+    and its VJP, ``compute_dtype=dtype``). The forward runs the conv and
+    BN-pool kernels; the variance is the biased one-pass E[act^2] -
+    E[act]^2 in float64. The backward runs the pool backward, dW and (when
+    x needs a gradient) d_x kernels, with dgamma = sum d_n xhat and dbeta =
+    sum d_n; d_x and dW are float32. The batch statistics get no
     gradient (they feed only the running-statistics update). Under a
     process group the float64 sums of the conv forward and of the pool
     backward are summed over the ranks before they make the statistics
@@ -416,8 +507,8 @@ class StemTrain(torch.autograd.Function):
     share, which the gradient all-reduce adds up)."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, eps):
-        act, s1, s2 = stem_conv(x, w)
+    def forward(ctx, x, w, gamma, beta, eps, dtype=torch.float32):
+        act, s1, s2 = stem_conv(x, w, dtype=dtype)
         n = act.numel() // C_OUT
         if distributed.active():  # the global batch's statistics
             tot = distributed.all_reduce_(torch.cat([s1, s2, s1.new_full(
@@ -442,19 +533,22 @@ class StemTrain(torch.autograd.Function):
             tot = distributed.all_reduce_(torch.cat([sd, sdx]))
             gsd, gsdx = tot[:C_OUT], tot[C_OUT:]
         coef = bn_backward_coef(gamma, mean, inv, gsd, gsdx, ctx.n)
-        need_x, need_w, need_g, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, need_g, need_b = ctx.needs_input_grad[:4]
         d_w = stem_conv_dw(x, act, d_n, coef) if need_w else None
         d_x = stem_conv_dx(act, d_n, coef, w) if need_x else None
-        return (d_x, d_w, sdx.float() if need_g else None,
-                sd.float() if need_b else None, None)
+        grads = (d_x, d_w, sdx.float() if need_g else None,
+                 sd.float() if need_b else None, None, None)
+        return grads[:len(ctx.needs_input_grad)]  # dtype may be left out
 
 
-def stem_train(x, w, gamma, beta, eps=1e-5):
-    """Train-mode fused stem: x (B, 3, H, W) -> (pooled (B, 64, H/4, W/4),
-    batch mean, biased batch variance), differentiable in x, w, gamma and
-    beta (``StemTrain``)."""
+def stem_train(x, w, gamma, beta, eps=1e-5, dtype=torch.float32):
+    """Train-mode fused stem: x (B, 3, H, W) -> (pooled (B, 64, H/4, W/4) in
+    ``dtype``, batch mean, biased batch variance), differentiable in x, w,
+    gamma and beta (``StemTrain``)."""
     check_stem_input(x, w)
-    return StemTrain.apply(x.contiguous(), w.contiguous(), gamma, beta, eps)
+    _check_dtype(dtype)
+    return StemTrain.apply(x.contiguous(), w.contiguous(), gamma, beta, eps,
+                           dtype)
 
 
 class _StemEval(torch.autograd.Function):
@@ -462,8 +556,8 @@ class _StemEval(torch.autograd.Function):
     ``stem_eval``, a bare kernel call, it has no backward."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, mean, var, eps):
-        act, _, _ = stem_conv(x, w, stats=False)
+    def forward(ctx, x, w, gamma, beta, mean, var, eps, dtype):
+        act, _, _ = stem_conv(x, w, stats=False, dtype=dtype)
         _, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
         return stem_bnpool(act, alpha, shift)
 
@@ -475,13 +569,14 @@ class _StemEval(torch.autograd.Function):
             "ResNet in train mode, or build it with stem_kernel=False")
 
 
-def stem_eval(x, w, gamma, beta, mean, var, eps=1e-5):
+def stem_eval(x, w, gamma, beta, mean, var, eps=1e-5, dtype=torch.float32):
     """Eval-mode fused stem, the batch norm folded with the running
-    statistics: x (B, 3, H, W) -> (B, 64, H/4, W/4). A backward through it
-    raises ``NotImplementedError``."""
+    statistics: x (B, 3, H, W) -> (B, 64, H/4, W/4) in ``dtype``. A
+    backward through it raises ``NotImplementedError``."""
     check_stem_input(x, w)
+    _check_dtype(dtype)
     return _StemEval.apply(x.contiguous(), w.contiguous(), gamma, beta, mean,
-                           var, eps)
+                           var, eps, dtype)
 
 
 def _stream(t):
@@ -493,14 +588,14 @@ def _library():
     lib = load("stem")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.r2l_stem_conv_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                      ptr]
-    lib.r2l_stem_bnpool.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.r2l_stem_pool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                       i32, ptr]
+    lib.r2l_stem_bnpool.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.r2l_stem_pool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, i32, ptr]
     lib.r2l_stem_conv_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, ptr]
+                                     i32, i32, ptr]
     lib.r2l_stem_conv_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, ptr]
+                                     i32, i32, ptr]
     lib.r2l_stem_tiles.argtypes = [i32, i32, i32]
     lib.r2l_stem_ctas.argtypes = [i32, i32, i32, i32, i32]
     for fn in (lib.r2l_stem_conv_fwd, lib.r2l_stem_bnpool,

@@ -13,28 +13,67 @@ differ from torchvision's in three places:
 ``ResNet(stem_kernel=True)`` (JAX ``stem_pallas``) runs the stem, conv1 +
 bn1 + ReLU + maxpool, through the CUDA kernels of ``kernels/stem.py``. It
 keeps the parameter names, so state dicts load either way.
+
+``dtype`` (JAX ``dtype``) is the compute dtype, float32 or bfloat16; the
+parameters, running statistics and optimizer state stay float32 (flax's
+``param_dtype``). In bfloat16 each layer rounds where its flax layer does
+(not ``torch.autocast``, which keeps other ops in float32): a conv casts
+its input and kernel to bfloat16 and returns bfloat16; a batch norm takes
+its statistics and normalises in float32 from the bfloat16 input and
+returns bfloat16; ReLU, the residual add and the max pool stay bfloat16;
+the mean over H and W sums in float32 and rounds to bfloat16; the ``fc``
+head computes in float32. The plain stem's batch norm takes its
+statistics from the rounded conv output, the kernel stem from the float32
+accumulator, as in JAX. ``load_pretrained_variables`` overlays ImageNet
+weights converted to the JAX package's npz layout (flax paths), so one
+file serves both packages.
 """
 
 import math
+import os
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from raw2logit_tpu_torch import resolve_device
+from raw2logit_tpu_torch.convert import resnet_name
 from raw2logit_tpu_torch.kernels.stem import stem_eval, stem_train
 from raw2logit_tpu_torch.parallel import distributed
 
 
-class Conv2dSame(nn.Conv2d):
+def cast(x, dtype):
+    """``x`` in the compute ``dtype``: cast where that is bfloat16; float32
+    computes in the input's own dtype (a float64 model stays float64)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free conv computing in ``compute_dtype`` (flax ``nn.Conv(dtype=
+    ...)``): in bfloat16 its input and its float32 kernel are cast to
+    bfloat16 and it returns bfloat16."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, device=None, compute_dtype=torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=padding, bias=False, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(cast(x, dt), cast(self.weight, dt), None)
+
+
+class Conv2dSame(Conv2d):
     """Bias-free conv with flax ``padding="SAME"``: output size
     ceil(n / stride), the padding computed per call from the input size
     and split with the extra pixel at the end."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 device=None):
+                 device=None, compute_dtype=torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding=0, bias=False, device=device)
+                         device=device, compute_dtype=compute_dtype)
 
     def forward(self, x):
         pads = []
@@ -54,9 +93,21 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     Normalisation (biased batch variance in train mode, running
     statistics in eval mode) is torch's, which is flax's. Under a process
     group (``distributed.active()``) the train-mode statistics are the
-    global batch's (``distributed.sync_batch_norm``)."""
+    global batch's (``distributed.sync_batch_norm``). With a bfloat16
+    ``compute_dtype`` (flax ``nn.BatchNorm(dtype=bfloat16)``) the input is
+    widened, statistics and normalisation are float32 and the output is
+    rounded to bfloat16."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        if self.compute_dtype == torch.float32:
+            return self._normalise(x)
+        return self._normalise(x.float()).to(self.compute_dtype)
+
+    def _normalise(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         if distributed.active():
@@ -85,20 +136,23 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
 
-def _bn(features, device):
-    return FlaxBatchNorm2d(features, eps=1e-5, momentum=0.1, device=device)
+def _bn(features, device, dtype=torch.float32):
+    return FlaxBatchNorm2d(features, eps=1e-5, momentum=0.1, device=device,
+                           compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_channels, filters, stride=1, device=None):
+    def __init__(self, in_channels, filters, stride=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = Conv2dSame(in_channels, filters, 3, stride, device)
-        self.bn1 = _bn(filters, device)
-        self.conv2 = Conv2dSame(filters, filters, 3, 1, device)
-        self.bn2 = _bn(filters, device)
-        self.downsample = _downsample(in_channels, filters, stride, device)
+        self.conv1 = Conv2dSame(in_channels, filters, 3, stride, device, dtype)
+        self.bn1 = _bn(filters, device, dtype)
+        self.conv2 = Conv2dSame(filters, filters, 3, 1, device, dtype)
+        self.bn2 = _bn(filters, device, dtype)
+        self.downsample = _downsample(in_channels, filters, stride, device,
+                                      dtype)
 
     def zero_init_last_bn(self):
         nn.init.zeros_(self.bn2.weight)
@@ -113,16 +167,17 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_channels, filters, stride=1, device=None):
+    def __init__(self, in_channels, filters, stride=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = Conv2dSame(in_channels, filters, 1, 1, device)
-        self.bn1 = _bn(filters, device)
-        self.conv2 = Conv2dSame(filters, filters, 3, stride, device)
-        self.bn2 = _bn(filters, device)
-        self.conv3 = Conv2dSame(filters, filters * 4, 1, 1, device)
-        self.bn3 = _bn(filters * 4, device)
+        self.conv1 = Conv2dSame(in_channels, filters, 1, 1, device, dtype)
+        self.bn1 = _bn(filters, device, dtype)
+        self.conv2 = Conv2dSame(filters, filters, 3, stride, device, dtype)
+        self.bn2 = _bn(filters, device, dtype)
+        self.conv3 = Conv2dSame(filters, filters * 4, 1, 1, device, dtype)
+        self.bn3 = _bn(filters * 4, device, dtype)
         self.downsample = _downsample(in_channels, filters * 4, stride,
-                                      device)
+                                      device, dtype)
 
     def zero_init_last_bn(self):
         nn.init.zeros_(self.bn3.weight)
@@ -135,13 +190,13 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def _downsample(in_channels, out_channels, stride, device):
+def _downsample(in_channels, out_channels, stride, device, dtype):
     """1x1 strided projection where the residual's shape changes."""
     if stride == 1 and in_channels == out_channels:
         return None
     return nn.Sequential(
-        Conv2dSame(in_channels, out_channels, 1, stride, device),
-        _bn(out_channels, device))
+        Conv2dSame(in_channels, out_channels, 1, stride, device, dtype),
+        _bn(out_channels, device, dtype))
 
 
 RESNET_CONFIGS = {
@@ -176,24 +231,31 @@ class ResNet(nn.Module):
     needs the pre-pool plane) runs the stem through the fused kernels,
     ``StemTrain`` in train mode (bn1's running statistics updated as
     ``FlaxBatchNorm2d`` does) and ``stem_eval`` in eval mode, whose
-    backward raises. It needs 64 filters, 3 input channels, float32 and
-    H, W multiples of 4, and raises otherwise.
+    backward raises. It needs 64 filters, 3 input channels, a float32
+    input and H, W multiples of 4, and raises otherwise; with ``dtype``
+    bfloat16 it runs the kernels' bfloat16 forms.
+
+    ``dtype``: the compute dtype, float32 or bfloat16 (module docstring);
+    parameters and statistics stay float32, the logits are float32.
     """
 
     def __init__(self, block_cls=BasicBlock, stage_sizes=(2, 2, 2, 2),
                  num_classes=2, num_filters=64, in_channels=3, device=None,
-                 generator=None, stem_kernel=False):
+                 generator=None, stem_kernel=False, dtype=torch.float32):
         super().__init__()
         if stem_kernel and (num_filters != 64 or in_channels != 3):
             raise NotImplementedError(
                 f"stem_kernel needs 64 filters and 3 input channels (the "
                 f"kernels hard-code them), got {num_filters} and "
                 f"{in_channels}")
-        self.stem_kernel = stem_kernel
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"the compute dtype is float32 or "
+                                      f"bfloat16, got {dtype}")
+        self.stem_kernel, self.dtype = stem_kernel, dtype
         device = resolve_device(device)
-        self.conv1 = nn.Conv2d(in_channels, num_filters, 7, 2, padding=3,
-                               bias=False, device=device)
-        self.bn1 = _bn(num_filters, device)
+        self.conv1 = Conv2d(in_channels, num_filters, 7, 2, padding=3,
+                            device=device, compute_dtype=dtype)
+        self.bn1 = _bn(num_filters, device, dtype)
         channels = num_filters
         self.layers = []
         for i, block_count in enumerate(stage_sizes):
@@ -201,7 +263,7 @@ class ResNet(nn.Module):
             for j in range(block_count):
                 stride = 2 if i > 0 and j == 0 else 1
                 blocks.append(block_cls(channels, num_filters * 2 ** i,
-                                        stride, device))
+                                        stride, device, dtype))
                 channels = num_filters * 2 ** i * block_cls.expansion
             layer = nn.Sequential(*blocks)
             self.add_module(f"layer{i + 1}", layer)
@@ -234,9 +296,10 @@ class ResNet(nn.Module):
         bn = self.bn1
         if not self.training:
             return stem_eval(x, self.conv1.weight, bn.weight, bn.bias,
-                             bn.running_mean, bn.running_var, bn.eps)
+                             bn.running_mean, bn.running_var, bn.eps,
+                             self.dtype)
         pooled, mean, var = stem_train(x, self.conv1.weight, bn.weight,
-                                       bn.bias, bn.eps)
+                                       bn.bias, bn.eps, self.dtype)
         bn.update_running(mean, var)
         return pooled
 
@@ -256,14 +319,158 @@ class ResNet(nn.Module):
             feats.append(y)  # 1/4, 1/8, 1/16, 1/32
         if return_features:
             return feats[:depth + 1]
+        if self.dtype != torch.float32:  # jnp.mean of bfloat16
+            return self.fc(y.float().mean(dim=(2, 3)).to(self.dtype).float())
         return self.fc(y.mean(dim=(2, 3)))
 
 
-def resnet_model(model="resnet18", in_channels=3, fc_out_features=2,
+def _weights_path(model, weights_dir):
+    return os.path.join(weights_dir, f"{model.lower()}.npz")
+
+
+def resnet_model(model="resnet18", pretrained=False, in_channels=3,
+                 fc_out_features=2, dtype=torch.float32, weights_dir="weights",
                  device=None, generator=None, stem_kernel=False):
-    """Factory mirroring the JAX ``resnet_model`` (random init only)."""
+    """Factory mirroring the JAX ``resnet_model``. ``pretrained`` requires
+    converted ImageNet weights at ``<weights_dir>/<model>.npz`` (the JAX
+    package's ``tools/convert_torchvision.py`` writes them on a host that
+    has torchvision) and raises here, at build time, when the file is
+    missing; the overlay itself is ``load_pretrained_variables``, which
+    the CLI applies after building, as the JAX package does."""
     block_cls, stage_sizes = RESNET_CONFIGS[model.lower()]
-    return ResNet(block_cls=block_cls, stage_sizes=stage_sizes,
-                  num_classes=fc_out_features, in_channels=in_channels,
-                  device=device, generator=generator,
-                  stem_kernel=stem_kernel)
+    net = ResNet(block_cls=block_cls, stage_sizes=stage_sizes,
+                 num_classes=fc_out_features, in_channels=in_channels,
+                 device=device, generator=generator,
+                 stem_kernel=stem_kernel, dtype=dtype)
+    if pretrained:
+        path = _weights_path(model, weights_dir)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"--classifier_pretrained requested but {path} does not "
+                f"exist. Convert torchvision ImageNet weights with the JAX "
+                f"package's `python tools/convert_torchvision.py "
+                f"{model.lower()} {path}` on a host that has torchvision, "
+                f"or from a torchvision-layout checkpoint with its "
+                f"`--state_dict ckpt.pth` (needs only torch)")
+    return net
+
+
+# ---------------------------------------------------------------------------
+# ImageNet weights (port of the JAX package's overlay,
+# raw2logit_tpu/models/resnet.py:246-344)
+
+
+def load_pretrained_npz(path):
+    """A flat {flax path: array} npz of converted weights, e.g.
+    ``params/layer1_0/Conv_0/kernel``, as numpy arrays."""
+    with np.load(path) as data:
+        return {k: np.asarray(v) for k, v in data.items()}
+
+
+# conv_init and fc stay at random init: the reference replaces
+# torchvision's conv1 and fc with freshly initialised layers even when
+# pretrained (its model.py:15-23), so only the backbone carries ImageNet
+# weights. Flax names, as the npz keys.
+PRETRAINED_SKIP = ("conv_init", "fc")
+
+# flax leaf -> the port's tensor: (collection, leaf) -> attribute
+_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
+           ("params", "bias"): "bias", ("batch_stats", "mean"):
+           "running_mean", ("batch_stats", "var"): "running_var"}
+
+
+def _to_torch_layout(leaf, arr):
+    """A flax array in the port's layout: conv kernels HWIO -> OIHW, Dense
+    kernels (in, out) -> (out, in); everything else as it is."""
+    if leaf != "kernel":
+        return arr
+    return np.transpose(arr, (3, 2, 0, 1) if arr.ndim == 4 else (1, 0))
+
+
+def _flax_shape(leaf, tensor):
+    """The shape of the port's ``tensor`` in the flax layout."""
+    shape = tuple(tensor.shape)
+    if leaf != "kernel":
+        return shape
+    return (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 \
+        else shape[::-1]
+
+
+def overlay_pretrained(module, flat, skip=PRETRAINED_SKIP, prefix=(),
+                       ignore_missing=False):
+    """Copy a flat ``{collection/module/.../leaf: array}`` dict (flax paths,
+    the layout of the JAX package's ``tools/convert_torchvision.py``) into
+    ``module``'s parameters and running statistics, in place, with the
+    layout transposes of ``convert.py``; flax module names map to the
+    port's by ``convert.resnet_name`` (``conv_init`` -> ``conv1``,
+    ``layer1_0/Conv_0`` -> ``layer1.0.conv1``).
+
+    ``prefix`` (flax names) descends into a submodule first, e.g.
+    ``("encoder",)`` for the U-Net++ encoder. Keys whose first module is in
+    ``skip`` are left out. Strict: unknown paths and shape mismatches
+    raise, unless ``ignore_missing`` (a truncated encoder, such as the
+    neural ISP's depth-3 resnet34, has only the early stages), which skips
+    what the module lacks. Returns the list of applied keys."""
+    applied = []
+    with torch.no_grad():
+        for key, arr in flat.items():
+            coll, *path = key.split("/")
+            if path and path[0] in skip:
+                continue
+            if coll not in ("params", "batch_stats"):
+                raise KeyError(f"collection {coll!r} not in variables "
+                               f"(have ['batch_stats', 'params'])")
+            name = resnet_name(tuple(prefix) + tuple(path[:-1]))
+            try:
+                target = module.get_submodule(name)
+            except AttributeError:
+                if ignore_missing:
+                    continue
+                raise KeyError(f"pretrained path {key!r} not found under "
+                               f"prefix {tuple(prefix)}: no module "
+                               f"{name!r}") from None
+            attr = _LEAVES.get((coll, path[-1]))
+            tensor = getattr(target, attr, None) if attr else None
+            if not torch.is_tensor(tensor):
+                if ignore_missing:
+                    continue
+                raise KeyError(f"pretrained leaf {key!r} not in variables")
+            arr = np.asarray(arr)
+            if _flax_shape(path[-1], tensor) != arr.shape:
+                raise ValueError(f"shape mismatch for {key}: variables have "
+                                 f"{_flax_shape(path[-1], tensor)}, npz has "
+                                 f"{arr.shape}")
+            value = _to_torch_layout(path[-1], arr)
+            tensor.copy_(torch.from_numpy(np.ascontiguousarray(
+                value, dtype=np.float32)))
+            applied.append(key)
+    return applied
+
+
+def load_pretrained_variables(model_name, module, weights_dir="weights",
+                              prefix=(), required=True, ignore_missing=False):
+    """Overlay the converted ImageNet weights of ``model_name`` from
+    ``<weights_dir>/<model_name>.npz`` onto ``module`` in place; returns
+    the applied keys.
+
+    ``required`` raises when the file is missing (the user asked for
+    pretrained weights); otherwise the module is left as it is, with a
+    note (the segmentation encoder's default, best-effort). The
+    ``conv_init`` and ``fc`` skip applies only to the top-level classifier
+    (``prefix=()``); an encoder under a prefix loads its full stem and
+    skips only ``fc``."""
+    path = _weights_path(model_name, weights_dir)
+    if not os.path.exists(path):
+        if required:
+            raise FileNotFoundError(
+                f"pretrained weights requested but {path} does not exist; "
+                f"convert them with the JAX package's "
+                f"tools/convert_torchvision.py on a host with torchvision, "
+                f"or from a torchvision-layout checkpoint with its "
+                f"--state_dict mode")
+        print(f"note: no converted ImageNet weights at {path}; "
+              f"encoder uses random init")
+        return []
+    skip = PRETRAINED_SKIP if not prefix else ("fc",)
+    return overlay_pretrained(module, load_pretrained_npz(path), skip=skip,
+                              prefix=prefix, ignore_missing=ignore_missing)

@@ -14,6 +14,12 @@ in that order, with ``decoder_channels[::-1][i]`` channels. The head, a
 Every convolution here is 3x3 stride 1, so flax ``SAME`` is a pad of 1 on
 each side. The decoder's batch norms are ``FlaxBatchNorm2d`` (momentum
 0.9 in flax's terms, the biased running-variance update).
+
+``dtype`` (JAX ``dtype``): in bfloat16 the encoder and the conv blocks
+compute as the bfloat16 ``ResNet`` does (``models/resnet.py``), the
+concatenations promote as in JAX (the float32 input row with bfloat16
+features gives float32, which the next conv rounds), and the
+segmentation head computes in float32; parameters stay float32.
 """
 
 import contextlib
@@ -24,8 +30,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from raw2logit_tpu_torch import resolve_device
-from raw2logit_tpu_torch.models.resnet import (RESNET_CONFIGS, ResNet, _bn,
-                                               _lecun_normal_)
+from raw2logit_tpu_torch.models.resnet import (RESNET_CONFIGS, Conv2d,
+                                               ResNet, _bn, _lecun_normal_)
 
 
 @contextlib.contextmanager
@@ -53,14 +59,15 @@ class ConvBlock(nn.Module):
     """(conv 3x3 -> BN -> ReLU) x 2, bias-free convs (flax ``ConvBlock``:
     ``conv0``, ``bn0``, ``conv1``, ``bn1``)."""
 
-    def __init__(self, in_channels, filters, device=None):
+    def __init__(self, in_channels, filters, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_channels, filters, 3, padding=1,
-                               bias=False, device=device)
-        self.bn0 = _bn(filters, device)
-        self.conv1 = nn.Conv2d(filters, filters, 3, padding=1, bias=False,
-                               device=device)
-        self.bn1 = _bn(filters, device)
+        self.conv0 = Conv2d(in_channels, filters, 3, padding=1, device=device,
+                            compute_dtype=dtype)
+        self.bn0 = _bn(filters, device, dtype)
+        self.conv1 = Conv2d(filters, filters, 3, padding=1, device=device,
+                            compute_dtype=dtype)
+        self.bn1 = _bn(filters, device, dtype)
 
     def forward(self, x):
         x = F.relu(self.bn0(self.conv0(x)))
@@ -78,12 +85,15 @@ class UNetPlusPlus(nn.Module):
     so outputs, gradients and statistics are bitwise those of
     ``remat=False``. ``device`` None means cuda (raises when CUDA is
     missing); the random init (flax's: lecun-normal convs, zero head
-    bias) draws from ``generator``, seeded 0 when None.
+    bias) draws from ``generator``, seeded 0 when None. ``dtype``: the
+    compute dtype, float32 or bfloat16 (module docstring); the logits are
+    float32.
     """
 
     def __init__(self, encoder_name="resnet34", encoder_depth=5,
                  decoder_channels=(256, 128, 64, 32, 16), in_channels=3,
-                 classes=1, remat=False, device=None, generator=None):
+                 classes=1, remat=False, device=None, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         if len(decoder_channels) != encoder_depth:
             raise ValueError(f"{len(decoder_channels)} decoder channels for "
@@ -91,12 +101,12 @@ class UNetPlusPlus(nn.Module):
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
-        self.depth, self.remat = encoder_depth, remat
+        self.depth, self.remat, self.dtype = encoder_depth, remat, dtype
         block_cls, stage_sizes = RESNET_CONFIGS[encoder_name.lower()]
         stages = stage_sizes[:max(encoder_depth - 1, 0)]
         self.encoder = ResNet(block_cls=block_cls, stage_sizes=stages,
                               num_classes=None, in_channels=in_channels,
-                              device=device, generator=generator)
+                              device=device, generator=generator, dtype=dtype)
         # channels of x_i_0: the input, the stem, the stages' outputs
         channels = {(0, 0): in_channels, (1, 0): 64}
         for i in range(len(stages)):
@@ -109,7 +119,8 @@ class UNetPlusPlus(nn.Module):
                         + channels[i + 1, j - 1])
                 channels[i, j] = row_channels[i]
                 self.add_module(f"x_{i}_{j}",
-                                ConvBlock(n_in, row_channels[i], device))
+                                ConvBlock(n_in, row_channels[i], device,
+                                          dtype))
         self.segmentation_head = nn.Conv2d(row_channels[0], classes, 3,
                                            padding=1, device=device)
         self._init_decoder(generator)
@@ -140,4 +151,7 @@ class UNetPlusPlus(nn.Module):
                 y = torch.cat([grid[i, k] for k in range(j)]
                               + [_upsample2x(grid[i + 1, j - 1])], dim=1)
                 grid[i, j] = self._node(getattr(self, f"x_{i}_{j}"), y)
-        return self.segmentation_head(grid[0, d])
+        out = grid[0, d]
+        if self.dtype != torch.float32:  # the head computes in float32
+            out = out.float()
+        return self.segmentation_head(out)

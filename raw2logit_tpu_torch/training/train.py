@@ -17,6 +17,14 @@ identity packing (``none``); a classification dataset trains a ResNet, a
 segmentation dataset (``SyntheticDrone``) a U-Net++. ``--track_*``
 writes the tracked stages, their gradients, the adversarial differences
 and the predictions under the run's ``results/`` (``tracking.images``).
+``--compute_dtype bfloat16`` computes the task model in bfloat16 (every
+ISP stays float32; checkpoints stay float32). ImageNet weights converted
+to ``weights/<model>.npz`` (the JAX package's npz layout) are overlaid as
+in the JAX CLI: onto the classifier with ``--classifier_pretrained``
+(required, conv1 and fc kept at their init), onto a U-Net++ encoder and
+the neural ISP's encoder whenever the file exists. ``--profile`` writes a
+``torch.profiler`` trace of global steps [1, 4) of each fold into the
+run's ``profile/`` directory.
 
 Data parallelism is one process per device: N processes started with
 ``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=<rank>`` join
@@ -25,8 +33,9 @@ gloo with ``--device cpu``), rank r trains on rows [r B/N, (r + 1) B/N)
 of every global batch of B, the steps compute the single-device step on
 the global batch, and only rank 0 writes the run store, the checkpoints
 and the tracked images. ``--n_devices`` defaults to the group's size.
-The options that later slices port raise ``NotImplementedError`` naming
-the ROADMAP Queue 1 item that ports them.
+The options the port leaves out (``--staged_step``, ``--fuse_opt``,
+``--tracking_uri``) raise ``NotImplementedError`` naming their ROADMAP
+Queue 1 item.
 """
 
 import argparse
@@ -47,6 +56,7 @@ from raw2logit_tpu_torch.data import (Loader, PrecomputedRGBView, Subset,
 from raw2logit_tpu_torch.isp import (NNProcessing, ParametrizedProcessing,
                                      RawToRGB, StaticPipeline)
 from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
+from raw2logit_tpu_torch.models.resnet import load_pretrained_variables
 from raw2logit_tpu_torch.parallel import distributed
 from raw2logit_tpu_torch.tracking import Run, track_images
 from raw2logit_tpu_torch.tracking.run import run_dir
@@ -169,7 +179,8 @@ def build_parser():
                    choices=["constant", "cosine"],
                    help="cosine decays to 0 over the fold's total steps")
     p.add_argument("--profile", action="store_true",
-                   help="trace a few train steps into the run dir")
+                   help="trace train steps [1, 4) of each fold into the "
+                        "run's profile/ directory (torch.profiler)")
     p.add_argument("--staged_step", action="store_true",
                    help="the JAX package's four-program staged step (a TPU "
                         "compile-budget workaround)")
@@ -188,23 +199,14 @@ def build_parser():
 
 
 def _refuse_unported(args):
-    """Raise NotImplementedError for an option that a later slice of the
-    port brings, naming the ROADMAP Queue 1 item."""
-    unported = (
-        (args.classifier_pretrained,
-         "--classifier_pretrained (ImageNet weights) comes with ROADMAP "
-         "Queue 1 item 11"),
-        (args.profile, "--profile comes with ROADMAP Queue 1 item 11"),
-        (args.staged_step or args.fuse_opt,
-         "--staged_step and --fuse_opt select TPU compile-budget "
-         "workarounds; the port's one train step computes their update "
-         "(ROADMAP Queue 1 item 3)"),
-        (args.compute_dtype == "bfloat16",
-         "--compute_dtype bfloat16 comes with ROADMAP Queue 1 item 11"),
-    )
-    for refused, why in unported:
-        if refused:
-            raise NotImplementedError(why)
+    """Raise NotImplementedError for the options the port leaves out,
+    naming the ROADMAP Queue 1 item (``--tracking_uri`` raises in
+    ``tracking.Run``)."""
+    if args.staged_step or args.fuse_opt:
+        raise NotImplementedError(
+            "--staged_step and --fuse_opt select TPU compile-budget "
+            "workarounds; the port's one train step computes their update "
+            "(ROADMAP Queue 1 item 3)")
 
 
 def _static_pipeline(args, dataset):
@@ -238,8 +240,7 @@ HALF_RESOLUTION_MODES = ("neural_network", "none")
 
 
 def _refuse_unrunnable(args, task):
-    """Raise where the JAX package cannot run the combination either,
-    or where it would overlay weights that the port cannot load yet."""
+    """Raise where the JAX package cannot run the combination either."""
     if task == "segmentation" and args.processing_mode in \
             HALF_RESOLUTION_MODES:
         raise ValueError(
@@ -247,16 +248,6 @@ def _refuse_unrunnable(args, task):
             f"RGB and the masks of a segmentation dataset are (H, W): the "
             f"JAX package fails on this combination too (its Dice loss "
             f"cannot broadcast them, ROADMAP Queue 3)")
-    encoders = (([args.smp_encoder] if task == "segmentation" else [])
-                + (["resnet34"] if args.processing_mode == "neural_network"
-                   else []))
-    for name in encoders:
-        path = os.path.join("weights", f"{name.lower()}.npz")
-        if os.path.exists(path):
-            raise NotImplementedError(
-                f"{path} exists, and the JAX package would overlay it onto "
-                f"the {name} encoder; the port's overlay of ImageNet "
-                f"weights comes with ROADMAP Queue 1 item 11")
 
 
 def build_processor(args, dataset, image_size, device, generator):
@@ -286,18 +277,92 @@ def build_processor(args, dataset, image_size, device, generator):
     return RawToRGB(device=device, **mosaic)
 
 
+def compute_dtype(args):
+    """The task model's compute dtype from ``--compute_dtype``."""
+    return (torch.bfloat16 if args.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
 def build_classifier(args, dataset, device, generator):
-    """The task model: a ResNet for classification, a U-Net++ on
-    ``--smp_encoder`` for segmentation, its init drawn from
+    """The task model in ``--compute_dtype``: a ResNet for classification
+    (raising here when ``--classifier_pretrained`` has no weights file),
+    a U-Net++ on ``--smp_encoder`` for segmentation, its init drawn from
     ``generator``."""
     if dataset.task == "classification":
         return resnet_model(model=args.classifier_network.lower(),
+                            pretrained=args.classifier_pretrained,
                             fc_out_features=len(dataset.classes),
-                            device=device, generator=generator)
+                            dtype=compute_dtype(args), device=device,
+                            generator=generator)
     return UNetPlusPlus(encoder_name=args.smp_encoder, encoder_depth=5,
                         decoder_channels=(256, 128, 64, 32, 16),
                         in_channels=3, classes=1, device=device,
-                        generator=generator)
+                        generator=generator, dtype=compute_dtype(args))
+
+
+def overlay_imagenet_weights(args, task, processor, classifier):
+    """The JAX CLI's ImageNet overlays (``weights/<model>.npz``): the
+    classifier's backbone with ``--classifier_pretrained`` (required), a
+    U-Net++ encoder with its full stem and the neural ISP's depth-3
+    resnet34 encoder whenever their file exists (best-effort). Returns the
+    applied keys."""
+    applied = []
+    if task == "classification" and args.classifier_pretrained:
+        applied = load_pretrained_variables(
+            args.classifier_network.lower(), classifier)
+    elif task == "segmentation":
+        applied = load_pretrained_variables(
+            args.smp_encoder.lower(), classifier, prefix=("encoder",),
+            required=False)
+    if applied:
+        print(f"applied {len(applied)} pretrained arrays to the classifier "
+              f"backbone")
+    if args.processing_mode == "neural_network" and processor is not None:
+        proc_applied = load_pretrained_variables(
+            "resnet34", processor, prefix=("model", "encoder"),
+            required=False, ignore_missing=True)
+        if proc_applied:
+            print(f"applied {len(proc_applied)} pretrained arrays to the "
+                  f"neural-ISP encoder")
+        applied = applied + proc_applied
+    return applied
+
+
+class StepProfiler:
+    """``--profile``: a ``torch.profiler`` trace of global train steps [1, 4)
+    (step 0 warms up), written to ``<out_dir>/trace.json`` when the window
+    closes, or by ``close`` when training ends inside it. Call ``before``
+    and ``after`` around each step; with ``out_dir`` None it does
+    nothing. It only observes: what is trained is the same."""
+
+    FIRST, END = 1, 4
+
+    def __init__(self, out_dir, device):
+        self.out_dir, self.device = out_dir, device
+        self.steps, self.prof = 0, None
+
+    def before(self):
+        if self.out_dir is not None and self.steps == self.FIRST:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+
+    def after(self):
+        self.steps += 1
+        if self.steps == self.END:
+            self.close()
+
+    def close(self):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.prof.export_chrome_trace(os.path.join(self.out_dir,
+                                                   "trace.json"))
+        self.prof = None
 
 
 def _epoch_means(metrics, weights=None):
@@ -445,6 +510,7 @@ def run_train(args):
                      else build_processor(args, dataset, image_size, device,
                                           init))
         classifier = build_classifier(args, dataset, device, init)
+        overlay_imagenet_weights(args, dataset.task, processor, classifier)
 
         state_dict = dict(vars(args))
         if args.state_dict_uri:
@@ -520,13 +586,19 @@ def run_train(args):
                     ckpt_root, f"epoch_{start_epoch:04d}.pt"), state)
                 print(f"[fold {k_iter}] resumed from epoch {start_epoch}")
 
+        # only the primary writes the trace
+        profiler = StepProfiler(
+            run.artifact_dir("profile") if primary and args.profile
+            else None, device)
         for epoch in range(start_epoch, args.epochs):
             epoch_metrics = []
             for raw, y in train_loader:
                 raw, y = distributed.shard(raw), distributed.shard(y)
+                profiler.before()
                 epoch_metrics.append(train_step(
                     state, torch.as_tensor(raw, device=device),
                     torch.as_tensor(y, device=device), generator))
+                profiler.after()
             train_mets = {f"train_{k}": v
                           for k, v in _epoch_means(epoch_metrics).items()}
             if primary:
@@ -554,6 +626,7 @@ def run_train(args):
                 ckpt.save_state(state, os.path.join(
                     ckpt_root, f"epoch_{epoch + 1:04d}.pt"))
 
+        profiler.close()  # training ended inside the trace window
         print(f"[fold {k_iter}] trained {args.epochs} epochs "
               f"in {time.time() - t0:.1f}s")
 

@@ -1,0 +1,123 @@
+"""The stem kernels' bfloat16 forms on the card: each against its plain
+bfloat16 version and a float64 witness on the same bfloat16-rounded
+operands (``chip_smoke.stem_bf16_agreement``, the ``BF16_*`` limits), at
+the shapes of ``tests/test_torch_kernels_gpu.py`` (68x44 and B = 1100
+among them), two launches bitwise equal; the bfloat16 ResNet with the stem
+flag launching the bfloat16 forms and no float32 one; and what the forms
+refuse. Imports no JAX, so that it runs where the port runs:
+
+    python -m pytest tests/test_torch_bf16_gpu.py -m gpu
+
+Every test skips where there is no CUDA device.
+"""
+
+import pytest
+import torch
+
+from chip_smoke import (BF16_ARGMAX, BF16_DRIFT_MAX, BF16_DRIFT_MEDIAN,
+                        drift, stem_bf16_agreement, stem_input, stem_params)
+from raw2logit_tpu_torch.kernels import (stem_bnpool, stem_conv,
+                                         stem_conv_dw, stem_conv_dx,
+                                         stem_eval, stem_pool_bwd,
+                                         stem_train)
+from raw2logit_tpu_torch.models import ResNet
+from test_torch_kernels_gpu import POOL_BWD_SHAPES, cuda  # noqa: F401
+
+WRAPPERS = (stem_conv, stem_bnpool, stem_pool_bwd, stem_conv_dw,
+            stem_conv_dx)
+
+
+def launched(fn):
+    """(float32, bfloat16) launches of each stem wrapper after ``fn()``."""
+    before = [(w.launches, w.launches_bf16) for w in WRAPPERS]
+    fn()
+    torch.cuda.synchronize()
+    return [(w.launches - a, w.launches_bf16 - b)
+            for w, (a, b) in zip(WRAPPERS, before)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["isp", "random"])
+@pytest.mark.parametrize("shape", [(4, 3, 256, 256), (3, 3, 68, 44),
+                                   (1, 3, 4, 8), (2, 3, 100, 140),
+                                   *POOL_BWD_SHAPES], ids=str)
+def test_stem_bf16_forms_match_plain(shape, inputs, cuda):  # noqa: F811
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, shape, inputs)
+    for name, (stats, ok) in stem_bf16_agreement(
+            x, w, gamma, beta, inputs == "random").items():
+        assert ok, (name, stats)
+
+
+@pytest.mark.gpu
+def test_stem_bf16_functions_repeat_bitwise(cuda):  # noqa: F811
+    """stem_train in bfloat16 (values and every gradient) and stem_eval:
+    two calls on the same inputs are bitwise equal."""
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, (8, 3, 128, 128), "random")
+    runs = []
+    for _ in range(2):
+        args = [t.clone().requires_grad_(True) for t in (x, w, gamma, beta)]
+        pooled, mean, var = stem_train(*args, dtype=torch.bfloat16)
+        assert pooled.dtype == torch.bfloat16
+        grads = torch.autograd.grad(pooled.float().square().sum(), args)
+        assert all(g.dtype == torch.float32 for g in grads)
+        with torch.no_grad():
+            ev = stem_eval(x, w, gamma, beta, mean, var,
+                           dtype=torch.bfloat16)
+        runs.append([pooled, mean, var, ev, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_resnet_launches_the_bf16_forms(cuda):  # noqa: F811
+    """``ResNet(stem_kernel=True, dtype=bfloat16)``: a train-mode forward
+    and backward launches each bfloat16 form once and no float32 form;
+    an eval call under no_grad launches the two forward forms; its logits
+    are float32 and meet JAX's bfloat16 contract against the float32
+    ResNet with the plain stem on the same weights."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(8, 3, 64, 64, device=cuda, generator=gen)
+    model = ResNet(stage_sizes=(1, 1), num_classes=9, device=cuda,
+                   stem_kernel=True, dtype=torch.bfloat16)
+    ref = ResNet(stage_sizes=(1, 1), num_classes=9, device=cuda)
+    ref.load_state_dict(model.state_dict())
+    xg = x.clone().requires_grad_(True)
+    seen = launched(lambda: model.train()(xg).square().sum().backward())
+    assert seen == [(0, 1)] * 5
+    assert xg.grad.dtype == torch.float32
+    assert model.conv1.weight.grad.dtype == torch.float32
+    model.load_state_dict(ref.state_dict())
+    with torch.no_grad():
+        out = {}
+        seen = launched(lambda: out.update(got=model.eval()(x)))
+        want = ref.eval()(x)
+    assert seen == [(0, 1), (0, 1), (0, 0), (0, 0), (0, 0)]
+    assert out["got"].dtype == torch.float32
+    med, mx, agree = drift(out["got"], want)
+    assert med < BF16_DRIFT_MEDIAN and mx < BF16_DRIFT_MAX, (med, mx)
+    assert agree >= BF16_ARGMAX
+
+
+@pytest.mark.gpu
+def test_stem_bf16_forms_check_their_input(cuda):  # noqa: F811
+    w, gamma, beta = stem_params(cuda)
+    x = torch.randn(2, 3, 32, 32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        stem_conv(x, w, dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        stem_conv(x.bfloat16(), w)  # x stays float32
+    act, _, _ = stem_conv(x, w, dtype=torch.bfloat16)
+    assert act.dtype == torch.bfloat16
+    pooled = stem_bnpool(act, gamma, beta)
+    assert pooled.dtype == torch.bfloat16
+    with pytest.raises(ValueError):  # planes of two dtypes
+        stem_pool_bwd(act, pooled.float(), gamma, beta, beta, gamma)
+    with pytest.raises(NotImplementedError):  # float32 coefficients only
+        stem_bnpool(act, gamma.bfloat16(), beta)
+    coef = (gamma, beta, beta, beta, gamma)
+    with pytest.raises(ValueError):
+        stem_conv_dw(x, act, act.float(), coef)
+    with pytest.raises(ValueError):
+        stem_conv_dx(act, act.transpose(2, 3), coef, w)

@@ -291,10 +291,7 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags,match", [
     (["--tracking_uri", "http://127.0.0.1:5000"], "item 11"),
-    (["--classifier_pretrained"], "item 11"),
-    (["--profile"], "item 11"),
     (["--staged_step"], "item 3"),
-    (["--compute_dtype", "bfloat16"], "item 11"),
 ])
 def test_cli_refuses_unported_options(flags, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

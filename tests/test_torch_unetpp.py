@@ -549,20 +549,3 @@ def test_cli_refuses_half_resolution_processors_for_segmentation(
     with pytest.raises(ValueError, match="Queue 3"):
         cli.main(["--dataset", "SyntheticDrone", "--processing_mode", mode,
                   "--device", "cpu", "--test_run", "--batch_size", "4"])
-
-
-@pytest.mark.parametrize("flags,weights", [
-    (["--dataset", "SyntheticDrone", "--smp_encoder", "resnet18"],
-     "resnet18"),
-    (["--dataset", "SyntheticMicroscopy", "--processing_mode",
-      "neural_network"], "resnet34")])
-def test_cli_refuses_to_ignore_pretrained_encoder_weights(
-        flags, weights, tmp_path, monkeypatch):
-    """Where weights/<encoder>.npz exists the JAX CLI overlays it onto
-    the encoder; until the port can (ROADMAP Queue 1 item 11) it raises
-    rather than train from another init."""
-    monkeypatch.chdir(tmp_path)
-    os.makedirs("weights")
-    np.savez(os.path.join("weights", f"{weights}.npz"), x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(flags + ["--device", "cpu"])
