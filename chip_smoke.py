@@ -437,12 +437,16 @@ STEM_SHAPES = ((BIG_BATCH, 3, SIZE, SIZE), (SERVE_BATCH, 3, SIZE, SIZE),
 # stem, the conv forward there and in serving with it, the SSIM aux kernel
 # in the adversarial step, the residual ISP backward in the train step,
 # the recompute ISP backward on its own, the serving ISP forward in
-# serving and the training ISP forward in the train step
+# serving and the training ISP forward in the train step; and the
+# bfloat16 dW and d_x as first ported on FMA units, in the bfloat16 train
+# step with the fused stem (the lower ends of PERF.md's rows 9b and 10b)
 FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
                         "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121,
                         "fused_isp_bwd_res": 2.1258, "fused_isp_bwd": 2.5632,
                         "stem_pool_bwd": 2.3177, "fused_isp_fwd": 0.4550,
-                        "fused_isp_fwd_train": 0.5195}
+                        "fused_isp_fwd_train": 0.5195,
+                        "stem_conv_dw_bf16": 3.3849,
+                        "stem_conv_dx_bf16": 3.3238}
 # The ISP's output batch norm (isp/batchnorm.py) on the card, on the fused
 # ISP's output at the train step's shapes, against nn.BatchNorm2d computed
 # in float64 (the float32 nn.BatchNorm2d is not the yardstick: at B = 256
@@ -2151,7 +2155,8 @@ def profile_calls(fn, arg, calls, warmups=3):
 # Profile keys of the kernels, patterns searched in the profiler's names
 # (template instances of the sources; the ISP forward's second argument is
 # its row alignment; the stem's storage type is the last template
-# argument, float or __nv_bfloat16).
+# argument, float or __nv_bfloat16, but for the bfloat16 dW and d_x, which
+# are kernels of their own on tensor cores).
 PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
                 "fused_isp_fwd_train": "fused_isp_fwd_kernel<true,",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
@@ -2160,7 +2165,9 @@ PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
                 **{name: f"{name}_kernel<[^>]*float>"
                    for name in STEM_KERNELS},
                 **{f"{name}_bf16": f"{name}_kernel<[^>]*bfloat16"
-                   for name in STEM_KERNELS}}
+                   for name in STEM_KERNELS[:3]},
+                "stem_conv_dw_bf16": "stem_conv_dw_mma_kernel",
+                "stem_conv_dx_bf16": "stem_conv_dx_mma_kernel"}
 
 
 def port_kernel_ms(kernels):
@@ -3975,9 +3982,13 @@ def phase_parallel_helpers(device):
 # BF16_SUM_F64_TOL of the channel's sum of |terms|, dW and d_x no further
 # than STEM_F64_FACTOR times the plain version is.
 BF16_BITWISE, BF16_DN_F64_SHARE, BF16_SUM_F64_TOL = 0.99, 0.9999, 1e-4
-# STEM_SHAPES (B = 256 and 32 at 256x256, the shapes that cut the tiles)
-# and B = 1100 at 4x8 (the pool backward's walk across 70,400 planes)
-BF16_SHAPES = (*STEM_SHAPES, (1100, 3, 4, 8))
+# STEM_SHAPES (B = 256 and 32 at 256x256, the shapes that cut the tiles),
+# B = 1100 at 4x8 (the pool backward's walk across 70,400 planes), and
+# two that cut the tensor-core dW and d_x tiles (16 x 32 positions) one
+# stage and one column pair past a tile (36x68), and one k16 step past it
+# across with 16-byte copies (68x96)
+BF16_SHAPES = (*STEM_SHAPES, (1100, 3, 4, 8), (1, 3, 36, 68),
+               (1, 3, 68, 96))
 # JAX's bfloat16 contract (tests/test_bf16_parity.py): logit drift over
 # each sample's logit spread, median and max; argmax agreement; a step's
 # loss relative to the float32 step's

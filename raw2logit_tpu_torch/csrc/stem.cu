@@ -15,9 +15,12 @@
 // with Ho = H / 2, Wo = W / 2, pooled (B, 64, Ho / 2, Wo / 2); H and W are
 // multiples of 4 (the wrapper checks). All planar, contiguous.
 //
-// Each kernel is a template on T, the storage type of act, pooled, d_n and
-// the pooled cotangent: float, or __nv_bfloat16 for the bfloat16 forms,
-// which compute what the TPU kernels compute with compute_dtype=bfloat16
+// The conv forward, BN-pool and pool backward are templates on T, the
+// storage type of act, pooled, d_n and the pooled cotangent: float, or
+// __nv_bfloat16 for the bfloat16 forms; dW and d_x are templates too, but
+// their bfloat16 forms are kernels of their own on tensor cores (section
+// 6). The bfloat16 forms compute what the TPU kernels compute with
+// compute_dtype=bfloat16
 // (raw2logit_tpu/pallas/stem.py): x and w are rounded to bfloat16 where
 // the convolutions load them, products and sums are float32, act is
 // stored rounded while the statistics come from the float32 accumulator,
@@ -33,15 +36,18 @@
 // (act - mu) inv, recomputed where dW and d_x read it (as the TPU kernels
 // do), so d_a never goes to device memory.
 //
-// Bounds on an H100 at B = 256, 256x256 (act is 268 M elements): the two
-// convolutions are bound by operations, 2 * 147 FMA operands per act
-// element, 78.9 GFLOP each (1.18 ms at 67 TFLOP/s of non-tensor f32); the
-// BN-pool pass and the pool backward by bytes (1.34 and 2.42 GB, 0.40 and
-// 0.72 ms at 3.35 TB/s). Design: direct FMAs from shared memory, register
-// blocking so that each shared load feeds several FMAs, the weights staged
-// in shared memory once per CTA, and CTAs that walk many tiles so that the
-// weights are read from L2 a few hundred times, not once per tile. No
-// tensor cores (TF32 would break the float32 contract), no TMA.
+// Bounds of the float32 forms on an H100 at B = 256, 256x256 (act is 268
+// M elements): the two convolutions are bound by operations, 2 * 147 FMA
+// operands per act element, 78.9 GFLOP each (1.18 ms at 67 TFLOP/s of
+// non-tensor f32); the BN-pool pass and the pool backward by bytes (1.34
+// and 2.42 GB, 0.40 and 0.72 ms at 3.35 TB/s). Design: direct FMAs from
+// shared memory, register blocking so that each shared load feeds several
+// FMAs, the weights staged in shared memory once per CTA, and CTAs that
+// walk many tiles so that the weights are read from L2 a few hundred
+// times, not once per tile. No tensor cores (TF32 would break the float32
+// contract), no TMA. The bfloat16 conv forward, BN-pool and pool backward
+// run the same FMA code on widened values; the bfloat16 dW and d_x run on
+// bf16 tensor cores (mma.sync), bound by bytes (0.38 ms), section 6.
 //
 // The conv forward, dW and d_x were redesigned for Hopper: one CTA per SM
 // walking all tiles of the batch with a stride of the grid; their inputs
@@ -740,9 +746,7 @@ stem_pool_bwd_kernel(const T* __restrict__ act, const T* __restrict__ dp,
 // registers, added into the CTA's in shared memory ([value][thread],
 // conflict-free); each half writes its own partials. (One chain per tile,
 // 256 positions, put dW at 72x40 2.0x further from float64 than the
-// plain version.) The bfloat16 form stages act and d_n as they are stored
-// (half the bytes, in the same shared slots), rounds d_a as it forms it and
-// each input value as it loads it into a register.
+// plain version.) The bfloat16 dW is stem_conv_dw_mma_kernel (section 6a).
 
 constexpr int DW_TH = 16, DW_TW = 32;     // 512 positions per tile
 constexpr int DW_SR = 2;                  // rows per stage, one per half
@@ -957,10 +961,8 @@ stem_conv_dw_kernel(const float* __restrict__ x, const T* __restrict__ act,
 // FMAs. Each pixel is summed in three levels whose float32 chains are at
 // most 16 long: a channel's 16 taps, a pass's 16 channels, the 4 passes.
 // Shared: the padded weights as [o][sy][sx][12] (49,152 B) and two chunks
-// of act and d_n (179,200 B). The bfloat16 form rounds the weights as it
-// stages them, stages act and d_n as they are stored into the second half
-// of the chunk's slot (so that d_a, formed as float32 and rounded, fills
-// the first half without overwriting what other threads still read).
+// of act and d_n (179,200 B). The bfloat16 d_x is stem_conv_dx_mma_kernel
+// (section 6b).
 
 constexpr int DX_TU = 32, DX_TV = 32;     // positions per tile
 constexpr int DX_DR = DX_TU + 3;          // 35 rows of d_a
@@ -1167,6 +1169,632 @@ stem_conv_dx_kernel(const T* __restrict__ act, const T* __restrict__ dn,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 6. The bfloat16 dW and d_x on tensor cores (replacing the <bf16>
+// instances of sections 4 and 5). Both contract the bfloat16 d_a with
+// bfloat16 x or w and sum in float32, which is what Hopper's bf16 tensor
+// cores compute: mma.sync.m16n8k16 (bf16 operands, float32 accumulators),
+// fed by ldmatrix from shared memory. (wgmma would need 64-row tiles of
+// one operand in its canonical shared layout; dW's im2col operand is built
+// per lane from pair words below, which mma.sync takes from registers,
+// and at these sizes the tensor cores are not the limit.)
+//
+// Each kernel is bound by bytes (act and d_n, 4 bytes an element, 0.38 ms
+// at B = 256, 256x256); the MMAs need about a fifth of that. What the
+// design spends instead: forming d_a (about 10 float32 operations an
+// element, rounded as the float32 kernels round) and shared-memory
+// wavefronts, so operands are laid out for conflict-free ldmatrix and
+// 32-bit loads, and each staged element is formed once, into one of two
+// buffers while the other feeds the MMAs (one barrier a stage). Measured
+// on an H100 at B = 256 (PERF.md), they run at 3 to 3.5 times that bound,
+// latency-bound with one CTA of 8 or 16 warps per SM: taking out the BN
+// arithmetic saves 0.06 ms, the MMAs 0.23, the adds that wait on the MMAs
+// 0.27 in dW (tools/stem_bf16_variants.py).
+//
+// The tensor core truncates (section 6a), so MMA chains are bounded and
+// added into float32 sums with plain adds in levels, as the float32
+// kernels' FMA chains are (section 4, section 5): dW takes a fresh
+// accumulator every k16 step (16 positions; chained over a stage's four,
+// dW read 2.90 times the plain version's distance from float64 at B = 32
+// on the ISP's outputs, whose products share a sign), d_x chains the four
+// taps of a column (section 6b; tools/stem_bf16_variants.py). Partials
+// per CTA in a fixed order and no atomics, so two launches are bitwise
+// equal.
+
+// Four 8x8 b16 matrices from shared memory: lanes 8q .. 8q + 7 give the
+// row addresses (16 bytes each) of matrix q, which lands in register q.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+
+// d = a b: a 16x16 bf16 (row-major), b 16x8 bf16 (column-major), d 16x8
+// float32, a fresh accumulator. Lane (g = lane / 4, t = lane % 4) holds
+// a's rows g, g + 8 at columns 2t, 2t + 1 (registers 0, 1) and 2t + 8,
+// 2t + 9 (2, 3); b's column g at rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9
+// (b1); d's rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2t,
+// 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// d = a b rounded to nearest: the tensor core truncates its sum toward
+// zero (section 6a), so the same product is taken again with half an ulp
+// of the first result, signed, as the accumulator. Where the sum cancels
+// below the largest product by more than a binade, that half ulp falls
+// under the alignment and the first result stands.
+__device__ __forceinline__ void mma_bf16_nearest(float (&d)[4],
+                                                 const unsigned (&a)[4],
+                                                 unsigned b0, unsigned b1) {
+  float t[4], h[4];
+  mma_bf16(t, a, b0, b1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)  // sign and exponent of t, times 2^-24
+    h[q] = __uint_as_float(__float_as_uint(t[q]) & 0xff800000u) * 0x1p-24f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(h[0]), "f"(h[1]), "f"(h[2]), "f"(h[3]));
+}
+
+// d += a b: the same product into a live accumulator (one rounding toward
+// zero per step, section 6a).
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s += d, or s = d for the first term of a sum.
+__device__ __forceinline__ void add4(float (&s)[4], const float (&d)[4],
+                                     bool first) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s[q] = first ? d[q] : s[q] + d[q];
+}
+
+// Two floats rounded to bfloat16 (to nearest even) in one word, lo first.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 6a. dW: dW[o, (c, ky, kx)] = sum over positions p of d_a[o, p] x[c, 2u +
+// ky - 3, 2v + kx - 3], an MMA with the 64 channels as M (four 16-row
+// tiles), the positions as K and the taps as N: one 8-wide tile per (c,
+// ky), kx = 0..7 (kx = 7 is padding, computed and never written), 21 tiles.
+// Tile: 16 x 32 positions, walked as in section 4 (persistent grid, one CTA
+// per SM), staged two rows (64 positions, four k16 steps) at a time: act and
+// d_n by 16-byte cp.async (where Wo is a multiple of 8) into a ring of
+// DWM_NB stages, the tile's input with its halo, 3 x 37 x 72, by 4-byte
+// cp.async with the tile's first stage. A: d_a formed once per element as
+// [channel][position] bf16 rows of 144 bytes (ldmatrix rows 36 words apart:
+// conflict-free). B: at the tile's first stage the input, rounded to
+// bfloat16, becomes pair words P[c][row][s] = (x[s], x[s + 2]); the B
+// fragment of tap tile (c, ky) at positions v0 .. v0 + 15 of output row u is
+// then P[c][2u + ky][2 v0 + 4 t + g] and the word 16 further, one 32-bit
+// load each, 20 consecutive words a warp: conflict-free, no im2col. Warp:
+// 32 channels (warp % 2) x the tap tiles warp / 2 + 4 j (6 or 5 of them):
+// 12 or 10 MMAs per k16 step from 2 ldmatrix and 12 or 10 32-bit loads.
+// Software pipeline, one barrier a stage: each thread forms the next
+// stage's d_a (and, at a tile's last stage, the next tile's pair words)
+// into the other of two buffers before it runs this stage's MMAs, so that
+// the formation's float32 work fills the MMAs' latency. Sums in two
+// levels, plain float32 adds: the k16 steps of a stage, then the stages of
+// the walk, written once per CTA.
+//
+// The tensor core truncates: a k16 step's products are aligned to the
+// largest and cut 25 bits below it, and the sum is rounded toward zero
+// (measured on an H100: 1 + 0.75 ulp gives 1, -1 - 0.75 ulp gives -1, 1 +
+// 15 x 2^-26 gives 1). Over many steps of both signs that averages out
+// below the float32 adds' error; in a dW of few positions (at most
+// DWM_NEAREST, B = 1 at 4 x 8 has 8) each output is a handful of steps, and
+// the truncation alone would put it twice as far from float64 as the
+// plain version's rounded sums. There (kNearest) each step is rounded to
+// nearest by a second MMA (mma_bf16_nearest).
+
+constexpr int DWM_NB = 4;                    // stages in flight, >= 3
+constexpr int DWM_RAW = 2 * C_OUT * DW_SP;   // act and d_n of a stage
+constexpr int DWM_DS = DW_SP + 8;            // d_a row stride, 144 bytes
+constexpr int DWM_DA = C_OUT * DWM_DS;       // d_a of a stage
+constexpr int DWM_IC = 2 * DW_TW + 8;        // 72 staged input columns
+constexpr int DWM_XS = C_IN * DW_IR * DWM_IC;
+constexpr int DWM_PW = 2 * DW_TW + 4;        // 68 pair words per input row
+constexpr int DWM_P = C_IN * DW_IR * DWM_PW;
+constexpr int DWM_NT = C_IN * K;             // 21 tap tiles (c, ky)
+constexpr int DWM_WNT = cdiv(DWM_NT, 4);     // at most 6 of them a warp
+constexpr int DWM_NEAREST = 4096;            // positions of a short dW
+constexpr size_t DWM_SMEM =
+    (size_t)(DWM_NB * DWM_RAW + 2 * DWM_DA) * sizeof(bf16) +
+    (size_t)(DWM_XS + 2 * DWM_P + 5 * C_OUT) * sizeof(float);
+
+template <bool kNearest>
+__global__ void __launch_bounds__(NTHREADS, 1)
+stem_conv_dw_mma_kernel(const float* __restrict__ x,
+                        const bf16* __restrict__ act,
+                        const bf16* __restrict__ dn,
+                        const float* __restrict__ coef,
+                        float* __restrict__ partials, int B, int H, int W,
+                        int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* raw = reinterpret_cast<bf16*>(smem);  // [NB][act, d_n][64][64]
+  bf16* das = raw + DWM_NB * DWM_RAW;         // [2][64][DWM_DS]
+  float* xs = reinterpret_cast<float*>(das + 2 * DWM_DA);  // [3][37][72]
+  unsigned* pw = reinterpret_cast<unsigned*>(xs + DWM_XS);  // [2][3][37][68]
+  float* cf = reinterpret_cast<float*>(pw + 2 * DWM_P);     // [5][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mh = warp & 1, ng = warp >> 1;
+  const int nnt = (DWM_NT - ng + 3) / 4;  // the warp's tap tiles
+  const int Ho = H / 2, Wo = W / 2;
+  const int ntx = cdiv(Wo, DW_TW), tiles = cdiv(Ho, DW_TH) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * DW_NS;
+
+  for (int i = tid; i < 5 * C_OUT; i += NTHREADS) cf[i] = coef[i];
+  // this lane's word of tap tile j's first pair row
+  int prow[DWM_WNT];
+#pragma unroll
+  for (int j = 0; j < DWM_WNT; ++j) {
+    const int nt = ng + 4 * j;
+    prow[j] = nt < DWM_NT
+                  ? ((nt / K) * DW_IR + nt % K) * DWM_PW + 4 * t4 + g
+                  : 0;
+  }
+
+  // item i: stage i % DW_NS of the CTA's tile i / DW_NS; oy0 is the
+  // stage's first row
+  auto origin = [&](int item, int& b, int& oy0, int& ox0) {
+    const int gt = (int)blockIdx.x + (item / DW_NS) * (int)gridDim.x;
+    b = gt / tiles;
+    const int tile = gt % tiles;
+    oy0 = (tile / ntx) * DW_TH + (item % DW_NS) * DW_SR;
+    ox0 = (tile % ntx) * DW_TW;
+  };
+  // The input halo has one buffer: a tile's pair words are formed (with
+  // its first stage's d_a) before the next tile's input is issued,
+  // DW_NS - DWM_NB + 1 stages later.
+  auto issue = [&](int item) {
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    if (item % DW_NS == 0) {
+      const float* xb = x + (size_t)b * C_IN * H * W;
+      const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;
+      for (int i = tid; i < DWM_XS; i += NTHREADS) {
+        const int c = i / (DW_IR * DWM_IC), rem = i % (DW_IR * DWM_IC);
+        const int yy = iy0 + rem / DWM_IC, xx = ix0 + rem % DWM_IC;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        cp_async_f32(xs + i, in ? xb + ((size_t)c * H + yy) * W + xx : xb,
+                     in);
+      }
+    }
+    bf16* rd = raw + (item % DWM_NB) * DWM_RAW;
+    const bf16* ab = act + (size_t)b * C_OUT * Ho * Wo;
+    const bf16* db = dn + (size_t)b * C_OUT * Ho * Wo;
+    // rows (tensor, o, stage row) of 32 positions
+    if (vec) {
+      for (int e = tid; e < DWM_RAW / 8; e += NTHREADS) {
+        const int f = e % (DW_TW / 8), row = e / (DW_TW / 8);
+        const int sr = row % DW_SR, to = row / DW_SR;  // to = tensor * 64 + o
+        const int oy = oy0 + sr, ox = ox0 + 8 * f;
+        const bf16* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                       Ho * Wo;
+        const bool in = oy < Ho && ox < Wo;
+        cp_async_n<16>(rd + 8 * e, in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    } else {
+      for (int e = tid; e < DWM_RAW; e += NTHREADS) {
+        const int p = e % DW_SP, to = e / DW_SP;
+        const int oy = oy0 + p / DW_TW, ox = ox0 + p % DW_TW;
+        const bf16* src = (to < C_OUT ? ab : db) + (size_t)(to % C_OUT) *
+                                                       Ho * Wo;
+        const bool in = oy < Ho && ox < Wo;
+        copy_elem(rd + e, in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    }
+  };
+  // d_a of an item into das[item % 2]: thread = channel o x 8 positions
+  // (lanes 8k .. 8k + 7 read and write 128 consecutive bytes); at a tile's
+  // first stage also its pair words into pw[tile % 2]
+  auto form = [&](int item) {
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    const bf16* rb = raw + (item % DWM_NB) * DWM_RAW;
+    bf16* dd = das + (item & 1) * DWM_DA;
+#pragma unroll
+    for (int k = 0; k < C_OUT * DW_SP / 8 / NTHREADS; ++k) {
+      const int e = tid + k * NTHREADS;
+      const int o = e / (DW_SP / 8), p0 = 8 * (e % (DW_SP / 8));
+      const uint4 qa = *reinterpret_cast<const uint4*>(rb + o * DW_SP + p0);
+      const uint4 qn =
+          *reinterpret_cast<const uint4*>(rb + (C_OUT + o) * DW_SP + p0);
+      const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&qa);
+      const __nv_bfloat162* hn = reinterpret_cast<const __nv_bfloat162*>(&qn);
+      const float g1 = cf[o], c1 = cf[C_OUT + o], c2 = cf[2 * C_OUT + o],
+                  mu = cf[3 * C_OUT + o], inv = cf[4 * C_OUT + o];
+      const int oy = oy0 + p0 / DW_TW, ox = ox0 + p0 % DW_TW;
+      uint4 out;
+      unsigned* po = reinterpret_cast<unsigned*>(&out);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a2 = __bfloat1622float2(ha[j]);
+        const float2 n2 = __bfloat1622float2(hn[j]);
+        const bool in0 = oy < Ho && ox + 2 * j < Wo;
+        const bool in1 = oy < Ho && ox + 2 * j + 1 < Wo;
+        po[j] = pack_bf16(
+            in0 ? bn_input_cotangent(a2.x, n2.x, g1, c1, c2, mu, inv) : 0.f,
+            in1 ? bn_input_cotangent(a2.y, n2.y, g1, c1, c2, mu, inv) : 0.f);
+      }
+      *reinterpret_cast<uint4*>(dd + o * DWM_DS + p0) = out;
+    }
+    if (item % DW_NS == 0) {
+      unsigned* pt = pw + ((item / DW_NS) & 1) * DWM_P;
+      for (int i = tid; i < DWM_P; i += NTHREADS) {
+        const float* xr = xs + (i / DWM_PW) * DWM_IC + i % DWM_PW;
+        pt[i] = pack_bf16(xr[0], xr[2]);
+      }
+    }
+  };
+
+  float st[2][DWM_WNT][4], run[2][DWM_WNT][4];  // sums of a stage, the walk
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < DWM_WNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) run[mi][j][q] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < DWM_NB - 1; ++i) {
+    if (i < n_items) issue(i);
+    cp_async_commit();
+  }
+  cp_async_wait<DWM_NB - 2>();
+  __syncthreads();  // the first stage's copies landed
+  if (n_items > 0) form(0);
+  for (int item = 0; item < n_items; ++item) {
+    // the next stage's copies landed; this stage's d_a and pair words
+    // formed; the last stage's MMAs done with the buffers formed next
+    cp_async_wait<DWM_NB - 3>();
+    __syncthreads();
+    if (item + DWM_NB - 1 < n_items) issue(item + DWM_NB - 1);
+    cp_async_commit();
+    if (item + 1 < n_items) form(item + 1);
+
+    const int stage = item % DW_NS;
+    const bf16* dd = das + (item & 1) * DWM_DA;
+    const unsigned* pt = pw + ((item / DW_NS) & 1) * DWM_P;
+#pragma unroll
+    for (int ks = 0; ks < DW_SP / 16; ++ks) {
+      const int sr = ks / (DW_TW / 16), v0 = 16 * (ks % (DW_TW / 16));
+      unsigned a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], dd + (32 * mh + 16 * mi + (lane & 15)) * DWM_DS +
+                           16 * ks + 8 * (lane >> 4));
+      // input row 2 u + ky of output row u = DW_SR stage + sr of the tile
+      const unsigned* pk = pt + 2 * (DW_SR * stage + sr) * DWM_PW + 2 * v0;
+#pragma unroll
+      for (int j = 0; j < DWM_WNT; ++j)
+        if (j < nnt) {
+          const unsigned b0 = pk[prow[j]], b1 = pk[prow[j] + 16];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            float d[4];
+            if (kNearest)
+              mma_bf16_nearest(d, a[mi], b0, b1);
+            else
+              mma_bf16(d, a[mi], b0, b1);
+            add4(st[mi][j], d, ks == 0);
+          }
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < DWM_WNT; ++j)
+        if (j < nnt) add4(run[mi][j], st[mi][j], false);
+  }
+  float* out = partials + (size_t)blockIdx.x * C_OUT * TAPS;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < DWM_WNT; ++j) {
+      if (j >= nnt) continue;
+      const int nt = ng + 4 * j, t0 = (nt / K) * KK + (nt % K) * K;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int o = 32 * mh + 16 * mi + g + 8 * (q >> 1),
+                  kx = 2 * t4 + (q & 1);
+        if (kx < K) out[o * TAPS + t0 + kx] = run[mi][j][q];
+      }
+    }
+}
+
+// 6b. d_x, in the space-to-depth form of section 5: per output position
+// (u, v) the 12 phase values (c, py, px) are sum over taps (sy, sx) and
+// channels o of w8[o, c, 2 sy + py, 2 sx + px] d_a[o, u - sy + 2, v - sx +
+// 2], an MMA with the positions as M, the 12 phases padded to 16 as N (two
+// 8-wide tiles) and (tap, channel) as K = 16 x 64 (147 of the 192 tap
+// slots real). Tile: 16 x 32 positions, walked as in section 5, in four
+// chunks of 16 channels (one k16 step a tap): act and d_n on the tile's
+// support (19 rows from u0 - 1, 48 columns from v0 - 8) by 16-byte cp.async
+// (where Wo is a multiple of 8) into a double buffer; d_a formed once per
+// element into a channel-last [row][column][16] bf16 block (36 columns from
+// v0 - 2, zero outside the conv output), whose two 8-channel halves swap
+// places every 4 columns: the 16 positions x 16 channels of a tap are one
+// ldmatrix at a shifted row address (implicit GEMM), 8 consecutive columns
+// on 8 distinct 16-byte slots. B: the padded weights, rounded to bfloat16,
+// staged once per CTA as [tap][phase][64 channels] (32 KB), 8-channel
+// blocks swizzled by phase: one ldmatrix gives both phase tiles. Warp: one
+// tile row, two 16-position halves: per tap 3 ldmatrix feed 4 MMAs.
+// Software pipeline as in section 6a: the next chunk's d_a is formed into
+// the other of two blocks before this chunk's MMAs, one barrier a chunk.
+// Sums: the four taps sy of a tap column sx chained in the tensor core (64
+// products), then the 16 columns of the 4 chunks with plain float32 adds,
+// written after the fourth chunk. Every d_x sums 64 k16 steps at any shape
+// and its taps mix signs, so the truncation averages out: chained, d_x
+// read at most 1.41 times the plain version's distance from float64 at
+// the shapes of tools/stem_bf16_variants.py (1.35 with a fresh accumulator
+// a step), and the chain saves the adds that wait on each MMA (0.13 ms at
+// B = 256).
+
+constexpr int DXM_THREADS = 512;                // 16 warps, a tile row each
+constexpr int DXM_TU = 16, DXM_TV = 32;         // positions per tile
+constexpr int DXM_CC = 16;                      // channels per chunk
+constexpr int DXM_NC = C_OUT / DXM_CC;          // 4 chunks per tile
+constexpr int DXM_DR = DXM_TU + 3;              // 19 rows, from u0 - 1
+constexpr int DXM_DC = DXM_TV + 4;              // 36 columns, from v0 - 2
+constexpr int DXM_RC = DXM_TV + 16;             // 48 staged, from v0 - 8
+constexpr int DXM_PL = DXM_DR * DXM_RC;         // a staged channel
+constexpr int DXM_RAW = 2 * DXM_CC * DXM_PL;    // act and d_n of a chunk
+constexpr int DXM_D = DXM_DR * DXM_DC * DXM_CC;  // d_a of a chunk
+constexpr int DXM_WS = 16 * 16 * C_OUT;         // [tap][phase][channel]
+constexpr size_t DXM_SMEM =
+    (size_t)(2 * DXM_RAW + 2 * DXM_D + DXM_WS) * sizeof(bf16) +
+    (size_t)5 * C_OUT * sizeof(float);
+
+__global__ void __launch_bounds__(DXM_THREADS, 1)
+stem_conv_dx_mma_kernel(const bf16* __restrict__ act,
+                        const bf16* __restrict__ dn,
+                        const float* __restrict__ coef,
+                        const float* __restrict__ w, float* __restrict__ dx,
+                        int B, int H, int W, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* raw = reinterpret_cast<bf16*>(smem);  // [2][act, d_n][16][19][48]
+  bf16* da = raw + 2 * DXM_RAW;               // [2][19][36][16]
+  bf16* ws = da + 2 * DXM_D;                  // [16][16][64]
+  float* cf = reinterpret_cast<float*>(ws + DXM_WS);  // [5][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int Ho = H / 2, Wo = W / 2;
+  const int ntx = cdiv(Wo, DXM_TV), tiles = cdiv(Ho, DXM_TU) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
+      DXM_NC;
+
+  for (int i = tid; i < DXM_WS; i += DXM_THREADS) {
+    const int tap = i / (16 * C_OUT), n = (i / C_OUT) % 16, o = i % C_OUT;
+    const int c = n / 4, ky = 2 * (tap / 4) + (n / 2) % 2 - 1,
+              kx = 2 * (tap % 4) + n % 2 - 1;
+    const float v = c < C_IN && ky >= 0 && kx >= 0
+                        ? w[o * TAPS + c * KK + ky * K + kx]
+                        : 0.f;
+    ws[(tap * 16 + n) * C_OUT + ((o / 8) ^ (n & 7)) * 8 + o % 8] =
+        __float2bfloat16_rn(v);
+  }
+  for (int i = tid; i < 5 * C_OUT; i += DXM_THREADS) cf[i] = coef[i];
+
+  // item i: channel chunk i % DXM_NC of the CTA's tile i / DXM_NC
+  auto origin = [&](int item, int& b, int& u0, int& v0) {
+    const int gt = (int)blockIdx.x + (item / DXM_NC) * (int)gridDim.x;
+    b = gt / tiles;
+    const int tile = gt % tiles;
+    u0 = (tile / ntx) * DXM_TU;
+    v0 = (tile % ntx) * DXM_TV;
+  };
+  auto issue = [&](int item) {
+    int b, u0, v0;
+    origin(item, b, u0, v0);
+    const size_t plane0 = (size_t)b * C_OUT + (item % DXM_NC) * DXM_CC;
+    bf16* rd = raw + (item & 1) * DXM_RAW;
+    // rows (tensor, channel, lr) of the support
+    if (vec) {
+      for (int e = tid; e < DXM_RAW / 8; e += DXM_THREADS) {
+        const int f = e % (DXM_RC / 8), row = e / (DXM_RC / 8);
+        const int lr = row % DXM_DR, tc = row / DXM_DR;  // tensor * 16 + ch
+        const int oy = u0 - 1 + lr, ox = v0 - 8 + 8 * f;
+        const bf16* src = (tc < DXM_CC ? act : dn) +
+                          (plane0 + tc % DXM_CC) * Ho * Wo;
+        const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+        cp_async_n<16>(rd + 8 * e, in ? src + (size_t)oy * Wo + ox : src,
+                       in);
+      }
+    } else {
+      for (int e = tid; e < DXM_RAW; e += DXM_THREADS) {
+        const int col = e % DXM_RC, row = e / DXM_RC;
+        const int lr = row % DXM_DR, tc = row / DXM_DR;
+        const int oy = u0 - 1 + lr, ox = v0 - 8 + col;
+        const bf16* src = (tc < DXM_CC ? act : dn) +
+                          (plane0 + tc % DXM_CC) * Ho * Wo;
+        const bool in = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+        copy_elem(rd + e, in ? src + (size_t)oy * Wo + ox : src, in);
+      }
+    }
+  };
+
+  float run[2][2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) run[mi][nh][q] = 0.f;
+  // this lane's ldmatrix rows: B phase bn, channels 8 kh .. of the chunk
+  const int bn = (lane & 7) + 8 * (lane >> 4), kh = (lane >> 3) & 1;
+
+  // d_a of a chunk into da[item % 2], channel-last: thread = 8 channels
+  // (half j, fixed: the stride is even) x 2 columns; reads channel pairs
+  // of act and d_n, writes two 16-byte rows of the block
+  auto form = [&](int item) {
+    int b, u0, v0;
+    origin(item, b, u0, v0);
+    const int o0 = (item % DXM_NC) * DXM_CC;
+    const bf16* sa = raw + (item & 1) * DXM_RAW;
+    bf16* dd = da + (item & 1) * DXM_D;
+    const int j = tid & 1;
+    float g1[8], c1[8], c2[8], mu[8], inv[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int o = o0 + 8 * j + q;
+      g1[q] = cf[o];
+      c1[q] = cf[C_OUT + o];
+      c2[q] = cf[2 * C_OUT + o];
+      mu[q] = cf[3 * C_OUT + o];
+      inv[q] = cf[4 * C_OUT + o];
+    }
+    for (int e = tid; e < DXM_DR * DXM_DC; e += DXM_THREADS) {
+      const int cp = (e >> 1) % (DXM_DC / 2), r = (e >> 1) / (DXM_DC / 2);
+      const int col = 2 * cp;
+      const int oy = u0 - 1 + r, ox = v0 - 2 + col;
+      const bool row_in = oy >= 0 && oy < Ho;
+      const bool in0 = row_in && ox >= 0 && ox < Wo;
+      const bool in1 = row_in && ox + 1 >= 0 && ox + 1 < Wo;
+      // staged column of ox: col + 6
+      const bf16* pa = sa + (8 * j * DXM_DR + r) * DXM_RC + col + 6;
+      unsigned w0[4], w1[4];
+#pragma unroll
+      for (int q = 0; q < 8; q += 2) {
+        float d0[2], d1[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bf16* pq = pa + (q + h) * DXM_PL;
+          const float2 a2 =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pq));
+          const float2 n2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(pq + DXM_CC * DXM_PL));
+          d0[h] = in0 ? bn_input_cotangent(a2.x, n2.x, g1[q + h], c1[q + h],
+                                           c2[q + h], mu[q + h], inv[q + h])
+                      : 0.f;
+          d1[h] = in1 ? bn_input_cotangent(a2.y, n2.y, g1[q + h], c1[q + h],
+                                           c2[q + h], mu[q + h], inv[q + h])
+                      : 0.f;
+        }
+        w0[q / 2] = pack_bf16(d0[0], d0[1]);
+        w1[q / 2] = pack_bf16(d1[0], d1[1]);
+      }
+      *reinterpret_cast<uint4*>(
+          dd + (r * DXM_DC + col) * DXM_CC + 8 * (j ^ ((col >> 2) & 1))) =
+          make_uint4(w0[0], w0[1], w0[2], w0[3]);
+      *reinterpret_cast<uint4*>(
+          dd + (r * DXM_DC + col + 1) * DXM_CC +
+          8 * (j ^ (((col + 1) >> 2) & 1))) =
+          make_uint4(w1[0], w1[1], w1[2], w1[3]);
+    }
+  };
+
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+  if (n_items > 1) issue(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // the first chunk's copies landed
+  if (n_items > 0) form(0);
+  for (int item = 0; item < n_items; ++item) {
+    // the next chunk's copies landed; this chunk's d_a formed; the last
+    // chunk's MMAs done with the buffer formed next
+    cp_async_wait_all();
+    __syncthreads();
+    if (item + 2 < n_items) issue(item + 2);
+    cp_async_commit();
+    if (item + 1 < n_items) form(item + 1);
+
+    int b, u0, v0;
+    origin(item, b, u0, v0);
+    const int chunk = item % DXM_NC;
+    const bf16* dcur = da + (item & 1) * DXM_D;
+    const bf16* wl = ws + bn * C_OUT + ((2 * chunk + kh) ^ (bn & 7)) * 8;
+#pragma unroll
+    for (int sx = 0; sx < 4; ++sx) {
+      float acc[2][2][4];
+#pragma unroll
+      for (int sy = 0; sy < 4; ++sy) {
+        unsigned bq[4];
+        ldsm_x4(bq, wl + (sy * 4 + sx) * 16 * C_OUT);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // tile row warp, positions 16 mi .. 16 mi + 15
+          const int col = 16 * mi + (lane & 15) + 4 - sx;
+          const int r = warp + 3 - sy;
+          unsigned a[4];
+          ldsm_x4(a, dcur + (r * DXM_DC + col) * DXM_CC +
+                         8 * ((lane >> 4) ^ ((col >> 2) & 1)));
+          if (sy == 0) {
+            mma_bf16(acc[mi][0], a, bq[0], bq[1]);
+            mma_bf16(acc[mi][1], a, bq[2], bq[3]);
+          } else {
+            mma_bf16_acc(acc[mi][0], a, bq[0], bq[1]);
+            mma_bf16_acc(acc[mi][1], a, bq[2], bq[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) run[mi][nh][q] += acc[mi][nh][q];
+    }
+    if (chunk == DXM_NC - 1) {
+      // phase n = 4 c + 2 py + px: lane's columns 2 t4, 2 t4 + 1 are (c,
+      // py) = (t4 / 2, t4 % 2) in the first tile, (2, t4) in the second
+      // (t4 < 2; the rest padding), px = 0, 1
+      const int u = u0 + warp;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int v = v0 + 16 * mi + g + 8 * hh;
+          if (u < Ho && v < Wo) {
+            float* d0 = dx + (((size_t)b * C_IN + t4 / 2) * H + 2 * u +
+                              t4 % 2) * W + 2 * v;
+            *reinterpret_cast<float2*>(d0) =
+                make_float2(run[mi][0][2 * hh], run[mi][0][2 * hh + 1]);
+            if (t4 < 2) {
+              float* d1 = dx + (((size_t)b * C_IN + 2) * H + 2 * u + t4) *
+                                   W + 2 * v;
+              *reinterpret_cast<float2*>(d1) =
+                  make_float2(run[mi][1][2 * hh], run[mi][1][2 * hh + 1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          run[mi][0][q] = 0.f;
+          run[mi][1][q] = 0.f;
+        }
+      }
+    }
+  }
+}
+
 template <typename F>
 int set_smem(F* kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -1235,6 +1863,36 @@ int launch_conv_dx(const T* act, const T* dn, const float* coef,
   return (int)cudaGetLastError();
 }
 
+// The bfloat16 forms (section 6): 16-byte copies where the rows of act and
+// d_n are a multiple of 8 elements and both tensors 16-byte aligned.
+int mma_vec(const bf16* act, const bf16* dn, int W) {
+  return (W / 2) % 8 == 0 && ((uintptr_t)act | (uintptr_t)dn) % 16 == 0;
+}
+
+int launch_conv_dw_mma(const float* x, const bf16* act, const bf16* dn,
+                       const float* coef, float* partials, int B, int H,
+                       int W, int ctas, void* stream) {
+  auto kernel = (long long)B * (H / 2) * (W / 2) <= DWM_NEAREST
+                    ? stem_conv_dw_mma_kernel<true>
+                    : stem_conv_dw_mma_kernel<false>;
+  int err = set_smem(kernel, DWM_SMEM);
+  if (err != 0) return err;
+  kernel<<<ctas, NTHREADS, DWM_SMEM, (cudaStream_t)stream>>>(
+      x, act, dn, coef, partials, B, H, W, mma_vec(act, dn, W));
+  return (int)cudaGetLastError();
+}
+
+int launch_conv_dx_mma(const bf16* act, const bf16* dn, const float* coef,
+                       const float* w, float* dx, int B, int H, int W,
+                       int ctas, void* stream) {
+  int err = set_smem(stem_conv_dx_mma_kernel, DXM_SMEM);
+  if (err != 0) return err;
+  stem_conv_dx_mma_kernel<<<ctas, DXM_THREADS, DXM_SMEM,
+                            (cudaStream_t)stream>>>(
+      act, dn, coef, w, dx, B, H, W, mma_vec(act, dn, W));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1248,8 +1906,8 @@ extern "C" {
 
 // Tiles per image of a kernel on an input of H x W (the tile shapes live
 // only in this file): kernel 0 conv forward, 1 pool backward (its units:
-// PB_CH window rows of a 128-column strip, per plane), 2 dW, 3 d_x; -1
-// for another kernel.
+// PB_CH window rows of a 128-column strip, per plane), 2 dW (both forms),
+// 3 d_x, 4 d_x's bfloat16 form; -1 for another kernel.
 int r2l_stem_tiles(int kernel, int H, int W) {
   const int Ho = H / 2, Wo = W / 2;
   switch (kernel) {
@@ -1257,12 +1915,13 @@ int r2l_stem_tiles(int kernel, int H, int W) {
     case 1: return cdiv(Ho / 2, PB_CH) * cdiv(Wo, PB_SW);
     case 2: return cdiv(Ho, DW_TH) * cdiv(Wo, DW_TW);
     case 3: return cdiv(Ho, DX_TU) * cdiv(Wo, DX_TV);
+    case 4: return cdiv(Ho, DXM_TU) * cdiv(Wo, DXM_TV);
   }
   return -1;
 }
 
 // Grid of a kernel on a card with `sms` SMs: for those that walk all B x
-// tiles tiles with a stride of the grid (0 conv forward, 2 dW, 3 d_x) one
+// tiles tiles with a stride of the grid (0 conv forward, 2 dW, 3 and 4 d_x) one
 // CTA per SM, at most one per tile; for the pool backward (1) PB_CTAS per
 // SM, at most one warp per unit; -1 for another kernel. A function of the
 // shape and the card only, so repeated launches are bitwise equal (the
@@ -1274,7 +1933,7 @@ int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
     const long long n = (units + PB_WARPS - 1) / PB_WARPS;
     return n < (long long)sms * PB_CTAS ? (int)n : sms * PB_CTAS;
   }
-  if (kernel != 0 && kernel != 2 && kernel != 3) return -1;
+  if (kernel < 0 || kernel > 4) return -1;
   const int n = B * r2l_stem_tiles(kernel, H, W);
   return n < sms ? n : sms;
 }
@@ -1316,29 +1975,32 @@ int r2l_stem_pool_bwd(const void* act, const void* dp, const float* coef,
                                 stream);
 }
 
-// partials: [ctas * 2][64][147] (dW in OIHW order per CTA and half).
+// partials: [ctas * 2][64][147] (dW in OIHW order per CTA and half) for
+// float32; [ctas][64][147] (per CTA) for the bfloat16 form.
 int r2l_stem_conv_dw(const float* x, const void* act, const void* dn,
                      const float* coef, float* partials, int B, int H, int W,
                      int ctas, int use_bf16, void* stream) {
-  return use_bf16 ? launch_conv_dw(x, (const bf16*)act, (const bf16*)dn, coef,
-                               partials, B, H, W, ctas, stream)
+  return use_bf16 ? launch_conv_dw_mma(x, (const bf16*)act, (const bf16*)dn,
+                                       coef, partials, B, H, W, ctas, stream)
               : launch_conv_dw(x, (const float*)act, (const float*)dn, coef,
                                partials, B, H, W, ctas, stream);
 }
 
+// `ctas` from r2l_stem_ctas(3, ...) for float32, (4, ...) for bfloat16.
 int r2l_stem_conv_dx(const void* act, const void* dn, const float* coef,
                      const float* w, float* dx, int B, int H, int W,
                      int ctas, int use_bf16, void* stream) {
-  return use_bf16 ? launch_conv_dx((const bf16*)act, (const bf16*)dn, coef, w,
-                               dx, B, H, W, ctas, stream)
+  return use_bf16 ? launch_conv_dx_mma((const bf16*)act, (const bf16*)dn,
+                                       coef, w, dx, B, H, W, ctas, stream)
               : launch_conv_dx((const float*)act, (const float*)dn, coef, w,
                                dx, B, H, W, ctas, stream);
 }
 
 // Kernel `which` of this file (0 conv forward, 1 BN-pool, 2 pool
 // backward, 3 dW, 4 d_x, 5 the pool backward's scalar form; 6-11 the same
-// in their bfloat16 forms): its name, registers per thread, CTAs per SM
-// and shared bytes per CTA (kernel_info.cuh); null past the last or on an
+// in their bfloat16 forms, 9 and 10 the tensor-core kernels of section 6,
+// dW's long-sum instance): its name, registers per thread, CTAs per SM and
+// shared bytes per CTA (kernel_info.cuh); null past the last or on an
 // error.
 const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
                             int* smem) {
@@ -1373,12 +2035,13 @@ const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
         (const void*)stem_pool_bwd_kernel<true, bf16>,
         "stem_pool_bwd_kernel<true, bf16>", NTHREADS, PB_SMEM, regs,
         ctas_per_sm, smem);
-    case 9: return r2l_occupancy((const void*)stem_conv_dw_kernel<bf16>,
-                                 "stem_conv_dw_kernel<bf16>", NTHREADS,
-                                 DW_SMEM, regs, ctas_per_sm, smem);
-    case 10: return r2l_occupancy((const void*)stem_conv_dx_kernel<bf16>,
-                                  "stem_conv_dx_kernel<bf16>", NTHREADS,
-                                  DX_SMEM, regs, ctas_per_sm, smem);
+    case 9: return r2l_occupancy(
+        (const void*)stem_conv_dw_mma_kernel<false>,
+        "stem_conv_dw_mma_kernel<false>", NTHREADS, DWM_SMEM, regs,
+        ctas_per_sm, smem);
+    case 10: return r2l_occupancy((const void*)stem_conv_dx_mma_kernel,
+                                  "stem_conv_dx_mma_kernel", DXM_THREADS,
+                                  DXM_SMEM, regs, ctas_per_sm, smem);
     case 11: return r2l_occupancy(
         (const void*)stem_pool_bwd_kernel<false, bf16>,
         "stem_pool_bwd_kernel<false, bf16>", NTHREADS, PB_SMEM, regs,

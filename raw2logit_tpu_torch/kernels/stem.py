@@ -47,8 +47,9 @@ C_OUT, C_IN, K = 64, 3, 7
 TAPS = C_IN * K * K
 # the storage dtypes of act, pooled, d_n and the pooled cotangent
 DTYPES = (torch.float32, torch.bfloat16)
-# kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes)
-_CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX = range(4)
+# kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes): d_x's
+# bfloat16 form walks tiles of its own
+_CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX, _CONV_DX_BF16 = range(5)
 
 
 # --------------------------------------------------------------------------
@@ -412,8 +413,14 @@ def _check_bwd(x_shape, act, d_n):
 def stem_conv_dw(x, act, d_n, coef):
     """dW (64, 3, 7, 7), float32, for d_a = ``bn_input_cotangent(act, d_n,
     coef)`` (x and d_a rounded to act's dtype). Kernel: CUDA
-    ``stem_conv_dw_kernel`` (per-CTA partials summed here in float64);
-    plain: ``stem_conv_dw_reference``."""
+    ``stem_conv_dw_kernel`` on FMA units for float32 (a row of partials per
+    CTA and half of it); for bfloat16 ``stem_conv_dw_mma_kernel`` on bf16
+    tensor cores (a row per CTA), bound by bytes: each k16 step of 16
+    positions is one MMA with a fresh accumulator added into float32 sums,
+    and, where the tensor core's truncation would show (at most 4096
+    positions), rounded to nearest by a second MMA, so that dW stays as
+    near float64 as the plain version. The partials are summed here in
+    float64. Plain: ``stem_conv_dw_reference``."""
     _check_float32("input", x)
     _check_x_shape(x.shape)
     dtype = _check_bwd(x.shape, act, d_n)
@@ -422,8 +429,8 @@ def stem_conv_dw(x, act, d_n, coef):
     b, _, h, wd = x.shape
     lib = _library()
     ctas = _ctas(lib, _CONV_DW, x.device, x.shape)
-    # one row of partials per CTA and half of it
-    partials = torch.empty((2 * ctas, C_OUT * TAPS), dtype=torch.float32,
+    rows = ctas if dtype == torch.bfloat16 else 2 * ctas
+    partials = torch.empty((rows, C_OUT * TAPS), dtype=torch.float32,
                            device=x.device)
     cf = _coef(coef)
     rc = lib.r2l_stem_conv_dw(x.data_ptr(), act.data_ptr(), d_n.data_ptr(),
@@ -441,7 +448,11 @@ stem_conv_dw.launches = stem_conv_dw.launches_bf16 = 0
 def stem_conv_dx(act, d_n, coef, w):
     """d_x (B, 3, 2 Ho, 2 Wo), float32, for d_a = ``bn_input_cotangent(act,
     d_n, coef)`` (d_a and w rounded to act's dtype). Kernel: CUDA
-    ``stem_conv_dx_kernel``; plain: ``stem_conv_dx_reference``."""
+    ``stem_conv_dx_kernel`` on FMA units for float32; for bfloat16
+    ``stem_conv_dx_mma_kernel`` on bf16 tensor cores, bound by bytes: an
+    implicit GEMM of the space-to-depth form, the four taps of a tap
+    column (a k16 step of 16 channels each) chained in the tensor core,
+    then added into float32 sums. Plain: ``stem_conv_dx_reference``."""
     b, _, ho, wo = act.shape
     x_shape = (b, C_IN, 2 * ho, 2 * wo)
     _check_w(w)
@@ -452,11 +463,11 @@ def stem_conv_dx(act, d_n, coef, w):
     d_x = torch.empty(x_shape, dtype=torch.float32, device=act.device)
     lib = _library()
     cf = _coef(coef)
+    kernel = _CONV_DX_BF16 if dtype == torch.bfloat16 else _CONV_DX
     rc = lib.r2l_stem_conv_dx(act.data_ptr(), d_n.data_ptr(), cf.data_ptr(),
                               w.data_ptr(), d_x.data_ptr(), b, 2 * ho,
-                              2 * wo, _ctas(lib, _CONV_DX, act.device,
-                                            x_shape), _bf16(dtype),
-                              _stream(act))
+                              2 * wo, _ctas(lib, kernel, act.device, x_shape),
+                              _bf16(dtype), _stream(act))
     _raise_on(lib, rc, "stem_conv_dx")
     _count(stem_conv_dx, dtype)
     return d_x

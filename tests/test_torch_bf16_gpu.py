@@ -2,14 +2,22 @@
 bfloat16 version and a float64 witness on the same bfloat16-rounded
 operands (``chip_smoke.stem_bf16_agreement``, the ``BF16_*`` limits), at
 the shapes of ``tests/test_torch_kernels_gpu.py`` (68x44 and B = 1100
-among them), two launches bitwise equal; the bfloat16 ResNet with the stem
-flag launching the bfloat16 forms and no float32 one; and what the forms
-refuse. Imports no JAX, so that it runs where the port runs:
+among them) and at shapes that cut the tensor-core tiles of dW and d_x at
+every edge, two launches bitwise equal; the two tensor-core kernels'
+SASS holding HMMA instructions, and the float32 forms' none; the bfloat16
+ResNet with the stem flag launching the bfloat16 forms and no float32
+one; and what the forms refuse. Imports no JAX, so that it runs where the
+port runs:
 
     python -m pytest tests/test_torch_bf16_gpu.py -m gpu
 
 Every test skips where there is no CUDA device.
 """
+
+import os
+import re
+import shutil
+import subprocess
 
 import pytest
 import torch
@@ -20,6 +28,7 @@ from raw2logit_tpu_torch.kernels import (stem_bnpool, stem_conv,
                                          stem_conv_dw, stem_conv_dx,
                                          stem_eval, stem_pool_bwd,
                                          stem_train)
+from raw2logit_tpu_torch.kernels.build import library_path, load
 from raw2logit_tpu_torch.models import ResNet
 from test_torch_kernels_gpu import POOL_BWD_SHAPES, cuda  # noqa: F401
 
@@ -47,6 +56,61 @@ def test_stem_bf16_forms_match_plain(shape, inputs, cuda):  # noqa: F811
     for name, (stats, ok) in stem_bf16_agreement(
             x, w, gamma, beta, inputs == "random").items():
         assert ok, (name, stats)
+
+
+# The tensor-core dW and d_x both tile 16 x 32 positions; dW stages two
+# rows (four k16 steps of 16 positions) at a time, d_x walks 16-channel
+# chunks. Ho = 18 and Wo = 34: one stage and one column pair past a tile
+# (rows of 34, no 16-byte copies); Ho = 34, Wo = 48: two tiles and a
+# stage down, one k16 step past a tile across (16-byte copies); Ho = 10,
+# Wo = 20: less than a tile, rows not a multiple of the k16 step; Ho = 2,
+# Wo = 36: one stage, a tile and a column pair across. B = 1 throughout.
+TILE_EDGE_SHAPES = [(1, 3, 36, 68), (1, 3, 68, 96), (1, 3, 20, 40),
+                    (1, 3, 4, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TILE_EDGE_SHAPES, ids=str)
+def test_stem_bf16_forms_at_the_tensor_core_tile_edges(shape,
+                                                       cuda):  # noqa: F811
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, shape, "random")
+    for name, (stats, ok) in stem_bf16_agreement(x, w, gamma, beta,
+                                                 True).items():
+        assert ok, (name, stats)
+
+
+def _sass_by_kernel(path):
+    """{mangled kernel name: its SASS} of a built library."""
+    tool = (shutil.which("cuobjdump")
+            or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cuobjdump"))
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump not found")
+    out = subprocess.run([tool, "-sass", path], check=True,
+                         capture_output=True, text=True).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", out, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+@pytest.mark.gpu
+def test_bf16_dw_and_dx_run_on_tensor_cores(cuda):  # noqa: F811
+    """Every instance of the bfloat16 dW and d_x kernels holds tensor-core
+    MMAs (HMMA or HGMMA) in the built library's SASS; their float32 forms
+    hold none (TF32 would break the float32 contract)."""
+    load("stem")
+    sass = _sass_by_kernel(library_path("stem"))
+    mma = re.compile(r"\bH(G)?MMA\b")
+
+    def bodies(key):
+        found = [text for name, text in sass.items() if key in name]
+        assert found, (key, sorted(sass))
+        return found
+
+    for key in ("stem_conv_dw_mma_kernel", "stem_conv_dx_mma_kernel"):
+        assert all(mma.search(text) for text in bodies(key)), key
+    for key in ("stem_conv_dw_kernelIf", "stem_conv_dx_kernelIf"):
+        assert not any(mma.search(text) for text in bodies(key)), key
 
 
 @pytest.mark.gpu
