@@ -439,14 +439,18 @@ STEM_SHAPES = ((BIG_BATCH, 3, SIZE, SIZE), (SERVE_BATCH, 3, SIZE, SIZE),
 # the recompute ISP backward on its own, the serving ISP forward in
 # serving and the training ISP forward in the train step; and the
 # bfloat16 dW and d_x as first ported on FMA units, in the bfloat16 train
-# step with the fused stem (the lower ends of PERF.md's rows 9b and 10b)
+# step with the fused stem (the lower ends of PERF.md's rows 9b and 10b),
+# and the bfloat16 conv forward and BN-pool as first ported (the <bf16>
+# instances of the FMA kernels, rows 6b and 7b there)
 FIRST_PORT_DEVICE_MS = {"stem_conv_dw": 5.3521, "stem_conv_dx": 7.8020,
                         "stem_conv_fwd": 3.2445, "ssim_aux": 2.7121,
                         "fused_isp_bwd_res": 2.1258, "fused_isp_bwd": 2.5632,
                         "stem_pool_bwd": 2.3177, "fused_isp_fwd": 0.4550,
                         "fused_isp_fwd_train": 0.5195,
                         "stem_conv_dw_bf16": 3.3849,
-                        "stem_conv_dx_bf16": 3.3238}
+                        "stem_conv_dx_bf16": 3.3238,
+                        "stem_conv_fwd_bf16": 2.2849,
+                        "stem_bnpool_bf16": 0.7331}
 # The ISP's output batch norm (isp/batchnorm.py) on the card, on the fused
 # ISP's output at the train step's shapes, against nn.BatchNorm2d computed
 # in float64 (the float32 nn.BatchNorm2d is not the yardstick: at B = 256
@@ -2059,104 +2063,165 @@ def phase_times(device, kind, pred, trains, advs, pred_stem, trains_stem):
     return rows
 
 
-def busy_ms(prof, calls):
-    """Device ms per call during which at least one kernel ran: the union
-    of the kernels' intervals (a sum would count overlapping kernels
-    twice)."""
+# The profiler now and then drops device records, in every retake of a
+# trace alike and early in it: late in a long run the first device record
+# of each trace, five traces in a row; in another run one of the two
+# serving ISP records of a two-call segmentation trace, five traces in a
+# row, 708 device records each time. So a trace opens with primers that
+# take the records it loses at its start: torch's own spin kernel
+# (``torch.cuda._sleep``), then one call of the function, each followed
+# by PROFILE_SETTLE_S; the measured calls run back to back inside a
+# ``record_function`` range (PROFILE_WINDOW). Only the device records that
+# start in that range (less half a settle, for the clocks' skew) count,
+# in every number and in the check that each launch of each port kernel
+# has its record; a trace that lost one is taken again, at most
+# PROFILE_ATTEMPTS times in all.
+PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
+PROFILE_PRIMER, PROFILE_WINDOW = "spin_kernel", "r2l_measured_call"
+
+
+def measured_records(prof):
+    """(device events of the measured calls, their window's start in the
+    trace's us): the device records that start in the PROFILE_WINDOW
+    range, primers and the range's own device-side record left out."""
     from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and PROFILE_PRIMER not in e.name)
+    events = prof.events()
+    starts = [e.time_range.start for e in events
+              if e.device_type != DeviceType.CUDA and e.name == PROFILE_WINDOW]
+    t0 = (min(starts) if starts else float("-inf")) - PROFILE_SETTLE_S * 5e5
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and PROFILE_PRIMER not in e.name and e.name != PROFILE_WINDOW
+            and e.time_range.start >= t0], t0
+
+
+def busy_ms(device):
+    """Device ms during which at least one of the ``device`` events ran:
+    the union of their intervals (a sum would count overlapping kernels
+    twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     total, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             total += e - max(s, end)
             end = e
-    return total / 1e3 / calls
+    return total / 1e3
 
 
-def trace_losses(prof, launched):
-    """What the profiler's trace lost, {} if nothing: each port kernel
-    whose device records differ in number from ``launched``, its launches
-    counted during the trace; on the card, every device record (a trace
-    that holds none). With the loss, the ms from the first host event to
-    the first device record and from the last device record to the last
-    host event, which say where in the trace the records went missing."""
+def lost_launches(prof, t0):
+    """Kernel launches on the host from ``t0`` (trace us) whose device
+    record is missing, matched by CUPTI correlation id (some launches have
+    none in any trace: a diagnostic, not a check): (their number, the
+    first ten as [ms from t0, the names of the device records just before
+    and after it]); None where the profiler does not expose its raw
+    events."""
     from torch.autograd import DeviceType
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and PROFILE_PRIMER not in e.name]
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None:
+        return None
+    raw = results.events()
+    base = results.trace_start_ns()
+    device = sorted((e.start_ns(), e.name()) for e in raw
+                    if e.device_type() == DeviceType.CUDA)
+    ids = {e.correlation_id() for e in raw
+           if e.device_type() == DeviceType.CUDA}
+    out = []
+    for e in raw:
+        at = (e.start_ns() - base) / 1e3
+        if ("LaunchKernel" in e.name() and e.correlation_id() not in ids
+                and at >= t0):
+            before = [n for s, n in device if s <= e.start_ns()]
+            after = [n for s, n in device if s > e.start_ns()]
+            out.append([(at - t0) / 1e3, before[-1][:60] if before else None,
+                        after[0][:60] if after else None])
+    return len(out), out[:10]
+
+
+def trace_losses(prof, launched, device, t0):
+    """What the measured calls' records lost, {} if nothing: each port
+    kernel whose records among ``device`` differ in number from
+    ``launched``, its launches counted during those calls; on the card,
+    every device record (calls that show none). With the loss, the
+    device records counted, the ms from the window's start to the first
+    of them and from the last of them to the last host event, and the
+    launches whose record is missing (``lost_launches``)."""
+    from torch.autograd import DeviceType
     recorded = {name: sum(1 for e in device if re.search(key, e.name))
                 for name, key in PROFILE_KEYS.items()}
     lost = {name: [n, recorded[name]] for name, n in launched.items()
             if n != recorded[name]}
     if not lost and (device or not torch.cuda.is_available()):
         return {}
-    host = [e.time_range for e in events if e.device_type != DeviceType.CUDA]
-    edges = ([(min(e.time_range.start for e in device)
-               - min(r.start for r in host)) / 1e3,
+    host = [e.time_range for e in prof.events()
+            if e.device_type != DeviceType.CUDA]
+    edges = ([(min(e.time_range.start for e in device) - t0) / 1e3,
               (max(r.end for r in host)
                - max(e.time_range.end for e in device)) / 1e3]
              if device and host else None)
     return {"port_kernels_launched_recorded": lost,
-            "device_records": len(device), "edge_gaps_ms": edges}
+            "device_records": len(device), "edge_gaps_ms": edges,
+            "launches_without_record": lost_launches(prof, t0)}
 
 
-# The profiler now and then drops device records (a port kernel, once a
-# whole trace's; late in a long run, the first device record of each
-# trace, five traces in a row): each trace launches a primer first,
-# torch's own spin kernel (``torch.cuda._sleep``), whose record is the
-# one such a trace loses and which every number leaves out; it opens
-# PROFILE_SETTLE_S before the first call and stays open PROFILE_SETTLE_S
-# after the device is done, and a trace that lost records is taken
-# again, at most PROFILE_ATTEMPTS times in all.
-PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
-PROFILE_PRIMER = "spin_kernel"
-
-
-def profile_calls(fn, arg, calls, warmups=3):
-    """Device ms by kernel per call of ``fn(arg)`` (torch.profiler, after
-    ``warmups`` warm-up calls), the device's busy ms per call and the wall
-    ms per call, from a trace that lost no record (``trace_losses``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmups):
+def trace_calls(fn, arg, calls):
+    """One trace of the primers and of ``calls`` measured calls of
+    ``fn(arg)``: (the profiler, the wall ms per measured call, their
+    launches of each port kernel)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if torch.cuda.is_available():
+            torch.cuda._sleep(1000)  # the primers
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
         fn(arg)
-    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
         before = counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            if torch.cuda.is_available():
-                torch.cuda._sleep(1000)  # the primer
-                torch.cuda.synchronize()
-            time.sleep(PROFILE_SETTLE_S)
+        with record_function(PROFILE_WINDOW):
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn(arg)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-            time.sleep(PROFILE_SETTLE_S)
         launched = {name: n - before[name] for name, n in counts().items()}
-        lost = trace_losses(prof, launched)
+        time.sleep(PROFILE_SETTLE_S)
+    return prof, wall_ms, launched
+
+
+def profile_calls(fn, arg, calls, warmups=3):
+    """Device ms by kernel per call of ``fn(arg)`` (torch.profiler, after
+    ``warmups`` warm-up calls), the device's busy ms per call and the wall
+    ms per call, over ``calls`` measured calls from a trace that lost no
+    record of them (``trace_calls``, ``trace_losses``). Returns ([(ms per
+    call, kernel, launches per call)] largest first, busy ms, wall
+    ms)."""
+    for _ in range(warmups):
+        fn(arg)
+    for attempt in range(PROFILE_ATTEMPTS):
+        prof, wall_ms, launched = trace_calls(fn, arg, calls)
+        device, t0 = measured_records(prof)
+        lost = trace_losses(prof, launched, device, t0)
         if not lost:
             break
         emit({"phase": "profile_trace_lost_records", "attempt": attempt,
               **lost})
     check(not lost, f"{PROFILE_ATTEMPTS} traces lost records: {lost}")
-    kernels = sorted(
-        ((e.self_device_time_total / 1e3 / calls, e.key, e.count // calls)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-         and PROFILE_PRIMER not in e.key),
-        reverse=True)
-    return kernels, busy_ms(prof, calls), wall_ms
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    kernels = sorted(((us / 1e3 / calls, name, n // calls)
+                      for name, (us, n) in by_name.items()), reverse=True)
+    return kernels, busy_ms(device) / calls, wall_ms
 
 
 # Profile keys of the kernels, patterns searched in the profiler's names
 # (template instances of the sources; the ISP forward's second argument is
 # its row alignment; the stem's storage type is the last template
-# argument, float or __nv_bfloat16, but for the bfloat16 dW and d_x, which
-# are kernels of their own on tensor cores).
+# argument, float or __nv_bfloat16, but for the bfloat16 conv forward, dW
+# and d_x, which are kernels of their own on tensor cores, and BN-pool, a
+# strip walk of its own).
 PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
                 "fused_isp_fwd_train": "fused_isp_fwd_kernel<true,",
                 "fused_isp_bwd_res": "fused_isp_bwd_kernel<true>",
@@ -2164,8 +2229,9 @@ PROFILE_KEYS = {"fused_isp_fwd": "fused_isp_fwd_kernel<false,",
                 "ssim_aux": "ssim_aux_kernel",
                 **{name: f"{name}_kernel<[^>]*float>"
                    for name in STEM_KERNELS},
-                **{f"{name}_bf16": f"{name}_kernel<[^>]*bfloat16"
-                   for name in STEM_KERNELS[:3]},
+                "stem_conv_fwd_bf16": "stem_conv_fwd_mma_kernel",
+                "stem_bnpool_bf16": "stem_bnpool_strip_kernel",
+                "stem_pool_bwd_bf16": "stem_pool_bwd_kernel<[^>]*bfloat16",
                 "stem_conv_dw_bf16": "stem_conv_dw_mma_kernel",
                 "stem_conv_dx_bf16": "stem_conv_dx_mma_kernel"}
 
@@ -3983,12 +4049,15 @@ def phase_parallel_helpers(device):
 # than STEM_F64_FACTOR times the plain version is.
 BF16_BITWISE, BF16_DN_F64_SHARE, BF16_SUM_F64_TOL = 0.99, 0.9999, 1e-4
 # STEM_SHAPES (B = 256 and 32 at 256x256, the shapes that cut the tiles),
-# B = 1100 at 4x8 (the pool backward's walk across 70,400 planes), and
-# two that cut the tensor-core dW and d_x tiles (16 x 32 positions) one
-# stage and one column pair past a tile (36x68), and one k16 step past it
-# across with 16-byte copies (68x96)
+# B = 1100 at 4x8 (the pool backward's walk across 70,400 planes), two
+# that cut the tensor-core dW and d_x tiles (16 x 32 positions) one stage
+# and one column pair past a tile (36x68), and one k16 step past it
+# across with 16-byte copies (68x96), and one that cuts the conv
+# forward's 8 x 32 tile two rows and a column pair past and BN-pool's
+# 128-column strips a column pair past, in rows that are not a multiple
+# of 8 (36x260)
 BF16_SHAPES = (*STEM_SHAPES, (1100, 3, 4, 8), (1, 3, 36, 68),
-               (1, 3, 68, 96))
+               (1, 3, 68, 96), (1, 3, 36, 260))
 # JAX's bfloat16 contract (tests/test_bf16_parity.py): logit drift over
 # each sample's logit spread, median and max; argmax agreement; a step's
 # loss relative to the float32 step's

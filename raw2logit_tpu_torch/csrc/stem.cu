@@ -1,6 +1,7 @@
 // Fused ResNet stem for Hopper (sm_90a), plain C interface: conv 7x7/2
 // (3 -> 64, pad 3, no bias), train-mode batch norm, ReLU, maxpool 3x3/2
-// (pad 1), forward and backward, in five kernels.
+// (pad 1), forward and backward, in five kernels, and the bfloat16 forms
+// of four of them (section 6).
 //
 // Replaces the TPU kernels of raw2logit_tpu/pallas/stem.py:
 //   stem_conv_fwd_kernel   <- _conv_kernel          act = x (*) w, and the
@@ -15,11 +16,12 @@
 // with Ho = H / 2, Wo = W / 2, pooled (B, 64, Ho / 2, Wo / 2); H and W are
 // multiples of 4 (the wrapper checks). All planar, contiguous.
 //
-// The conv forward, BN-pool and pool backward are templates on T, the
-// storage type of act, pooled, d_n and the pooled cotangent: float, or
-// __nv_bfloat16 for the bfloat16 forms; dW and d_x are templates too, but
-// their bfloat16 forms are kernels of their own on tensor cores (section
-// 6). The bfloat16 forms compute what the TPU kernels compute with
+// The five kernels are templates on T, the storage type of act, pooled,
+// d_n and the pooled cotangent; only the pool backward's bfloat16 form is
+// its T = __nv_bfloat16 instance. The bfloat16 conv forward, dW and d_x
+// are kernels of their own on bf16 tensor cores and the bfloat16 BN-pool
+// a strip walk of its own (section 6); the float32 forms are the float
+// instances. The bfloat16 forms compute what the TPU kernels compute with
 // compute_dtype=bfloat16
 // (raw2logit_tpu/pallas/stem.py): x and w are rounded to bfloat16 where
 // the convolutions load them, products and sums are float32, act is
@@ -45,9 +47,11 @@
 // FMAs, the weights staged in shared memory once per CTA, and CTAs that
 // walk many tiles so that the weights are read from L2 a few hundred
 // times, not once per tile. No tensor cores (TF32 would break the float32
-// contract), no TMA. The bfloat16 conv forward, BN-pool and pool backward
-// run the same FMA code on widened values; the bfloat16 dW and d_x run on
-// bf16 tensor cores (mma.sync), bound by bytes (0.38 ms), section 6.
+// contract), no TMA. The bfloat16 pool backward runs the same code on
+// widened values; the bfloat16 conv forward, dW and d_x run on bf16
+// tensor cores (mma.sync), bound by bytes (0.22, 0.38 and 0.38 ms), and
+// the bfloat16 BN-pool walks strips of the planes, bound by bytes (0.20
+// ms), section 6.
 //
 // The conv forward, dW and d_x were redesigned for Hopper: one CTA per SM
 // walking all tiles of the batch with a stride of the grid; their inputs
@@ -231,9 +235,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // the sums into its own float64 slots in shared memory once per tile; the
 // CTA reduces the slots once, in a fixed order, into partials[cta].
 // Shared memory: the weights as [tap][64] (37,632 B), two input tiles
-// (61,272 B) and the float64 slots (65,536 B). The bfloat16 form rounds
-// the weights as it stages them and each input value as it loads it into
-// a register, stores act rounded, and sums the float32 accumulators.
+// (61,272 B) and the float64 slots (65,536 B). Only the float instance is
+// built: the bfloat16 conv forward runs on tensor cores (section 6c).
 
 constexpr int CF_RPT = 8;              // output rows per thread
 constexpr int CF_CPT = 16;             // channels per thread
@@ -389,8 +392,8 @@ stem_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // 2. BN (folded alpha, beta), ReLU and maxpool 3x3/2 pad 1: one thread per
 // pooled element; the pad never wins (ReLU output >= 0, and the window's
 // centre is always inside the image). Bytes-bound; the 9 taps overlap
-// between neighbouring threads and come from L1. The bfloat16 form widens
-// act, computes in float32 and rounds the window's maximum.
+// between neighbouring threads and come from L1. Only the float instance
+// is built: the bfloat16 BN-pool is the strip walk of section 6d.
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
@@ -1170,16 +1173,19 @@ stem_conv_dx_kernel(const T* __restrict__ act, const T* __restrict__ dn,
 }
 
 // ---------------------------------------------------------------------------
-// 6. The bfloat16 dW and d_x on tensor cores (replacing the <bf16>
-// instances of sections 4 and 5). Both contract the bfloat16 d_a with
-// bfloat16 x or w and sum in float32, which is what Hopper's bf16 tensor
-// cores compute: mma.sync.m16n8k16 (bf16 operands, float32 accumulators),
-// fed by ldmatrix from shared memory. (wgmma would need 64-row tiles of
-// one operand in its canonical shared layout; dW's im2col operand is built
-// per lane from pair words below, which mma.sync takes from registers,
-// and at these sizes the tensor cores are not the limit.)
+// 6. The bfloat16 forms of their own: dW (6a), d_x (6b) and the conv
+// forward (6c) on tensor cores, replacing the <bf16> instances of
+// sections 4, 5 and 1, and BN-pool as a strip walk (6d), replacing that of
+// section 2. The convolutions contract bfloat16 operands (d_a with x or w,
+// w with x) and sum in float32, which is what Hopper's bf16 tensor cores
+// compute: mma.sync.m16n8k16 (bf16 operands, float32 accumulators), fed
+// by ldmatrix from shared memory. (wgmma would need 64-row tiles of one
+// operand in its canonical shared layout; the im2col operands of dW and
+// of the conv forward are built per lane from words of the staged input,
+// which mma.sync takes from registers, and at these sizes the tensor
+// cores are not the limit.)
 //
-// Each kernel is bound by bytes (act and d_n, 4 bytes an element, 0.38 ms
+// dW and d_x are each bound by bytes (act and d_n, 4 bytes an element, 0.38 ms
 // at B = 256, 256x256); the MMAs need about a fifth of that. What the
 // design spends instead: forming d_a (about 10 float32 operations an
 // element, rounded as the float32 kernels round) and shared-memory
@@ -1795,6 +1801,421 @@ stem_conv_dx_mma_kernel(const bf16* __restrict__ act,
   }
 }
 
+// 6c. The bfloat16 conv forward: act[o, p] = sum over taps k of w[o, k]
+// patch[k, p], an MMA with the 64 channels as M (four 16-row tiles), the
+// positions as N (8-wide tiles along an output row) and the taps as K in
+// rows of 8 per (c, ky), kx = 0..7 (kx = 7 padding): 21 rows, 11 k16 steps,
+// the last half zero (147 of the 176 slots real). Tile: 8 x 32 positions,
+// walked as in section 1 by a persistent grid of CFM_CTAS CTAs per SM (at
+// most 128 registers a thread: so that one CTA's epilogue and copies
+// overlap the other's MMAs; two read 0.47 ms against one's 0.57 at B =
+// 256, tools/stem_bf16_fwd_variants.py); warp w takes
+// output row w of the tile, all 64 channels x 4 position tiles: 16 MMAs a
+// k16 step from 4 ldmatrix (A, the weights) and 8 32-bit loads (B). A:
+// the weights rounded to bfloat16, staged once per CTA as [channel][k]
+// rows of 368 bytes (ldmatrix rows 92 words apart: conflict-free). B: the
+// tile's input with its halo, 3 x 21 x 72 floats from column 2 ox0 - 4,
+// comes by 16-byte cp.async (4-byte where x is not 16-byte aligned) into a
+// double buffer, and is rounded into words (x[s], x[s + 1]) at odd
+// offsets s = 2 ox0 - 3 + 2 m; lane (g, t)'s b0 of position tile n is taps
+// kx = 2t, 2t + 1 of one (c, ky) at output column 8 n + g, input columns
+// 2 (8 n + g + t) - 3 and the next: word 8 n + g + t of input row 2 u + ky,
+// one 32-bit load, 11 distinct words a warp (conflict-free, no im2col).
+// The hi half of t = 3's words (kx = 7) is masked, so that a non-finite
+// input outside a tap's reach cannot reach act through a zero weight.
+// Pipeline, one barrier a tile: the next tile's input is rounded into the
+// other word buffer and the tile after it is issued before this tile's
+// MMAs. Epilogue: the fragment holds channels g, g + 8 of each 16-row tile
+// at positions 2t, 2t + 1: act rounded to bfloat16 into the warp's rows of
+// shared memory, then written out as 16-byte chunks, 64 bytes of a
+// channel's row a quad (one word a store straight from the fragment where
+// Wo is not a multiple of 8; the word stores took 0.18 of 0.58 ms at B =
+// 256, the variants tool's no_store); the statistics from
+// the float32 accumulators over the warp's positions, summed across the
+// quad by a fixed butterfly, lane t keeping row tile t's two channels in
+// float64 over the walk; the CTA sums its 8 warps in order into
+// partials[cta]. (wgmma would take the 64 channels as one M tile, but its
+// B operand is an im2col tile in shared memory in the canonical layout:
+// the taps of a position are not the words of any staged row.)
+//
+// Bound on an H100 by bytes (x read once, 48 bytes, and act written, 128
+// bytes, per position: 0.22 ms at B = 256, 256x256); the MMAs, 94.5
+// GFLOP with the padding, take about 0.1 ms at the bf16 tensor-core peak.
+// A chain of 11 k16 steps per output: the tensor core's truncation (section
+// 6a) moves act by at most about 11 ulps of float32 of the step's largest
+// product toward zero, far below a bfloat16 ulp.
+
+constexpr int CFM_TH = 8, CFM_TW = 32;          // positions per tile
+constexpr int CFM_NT = CFM_TW / 8;              // position tiles a warp
+constexpr int CFM_IR = 2 * CFM_TH + 5;          // 21 input rows
+constexpr int CFM_RC = 2 * CFM_TW + 8;          // 72 staged columns
+constexpr int CFM_RW = CFM_TW + 4;              // 36 words a row (35 used)
+constexpr int CFM_RAW = C_IN * CFM_IR * CFM_RC;  // floats of a tile
+constexpr int CFM_XB = C_IN * CFM_IR * CFM_RW;  // words of a tile
+constexpr int CFM_PAIRS = C_IN * K;             // 21 (c, ky) rows of 8 taps
+constexpr int CFM_KS = cdiv(CFM_PAIRS, 2);      // 11 k16 steps
+constexpr int CFM_WS = 16 * CFM_KS + 8;         // 184 bf16 a weight row
+constexpr int CFM_WARPS = NTHREADS / 32;
+constexpr int CFM_CTAS = 2;                     // CTAs per SM
+constexpr int CFM_SW = C_OUT * CFM_TW / 2;      // a warp's act words
+constexpr size_t CFM_SMEM =
+    (size_t)CFM_WARPS * CFM_SW * sizeof(unsigned) +
+    (size_t)2 * CFM_RAW * sizeof(float) +
+    (size_t)2 * CFM_XB * sizeof(unsigned) +
+    (size_t)C_OUT * CFM_WS * sizeof(bf16);
+static_assert(CFM_SW * sizeof(unsigned) >= 2 * C_OUT * sizeof(double),
+              "the statistics' slots share a warp's act words");
+
+// flags: 1 x is 16-byte aligned (16-byte copies); 2 act is 16-byte
+// aligned and Wo a multiple of 8 (16-byte stores).
+__global__ void __launch_bounds__(NTHREADS, CFM_CTAS)
+stem_conv_fwd_mma_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w, bf16* __restrict__ act,
+                         double* __restrict__ partials, int B, int H, int W,
+                         int flags) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* sa = reinterpret_cast<unsigned*>(smem);  // [warp][64][16]
+  double* st = reinterpret_cast<double*>(smem);  // [warp][sum, sq][64], last
+  float* raw = reinterpret_cast<float*>(sa + CFM_WARPS * CFM_SW);
+  unsigned* xb = reinterpret_cast<unsigned*>(raw + 2 * CFM_RAW);
+  bf16* ws = reinterpret_cast<bf16*>(xb + 2 * CFM_XB);  // [64][CFM_WS]
+  const bool vec = flags & 1, vec_out = flags & 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int Ho = H / 2, Wo = W / 2;
+  const int ntx = cdiv(Wo, CFM_TW), tiles = cdiv(Ho, CFM_TH) * ntx;
+  const int total = B * tiles;
+  const int n_items =
+      (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const bool stats = partials != nullptr;
+  const unsigned kmask = t4 == 3 ? 0x0000ffffu : 0xffffffffu;
+
+  // w[o, c, ky, kx] at column 8 (7 c + ky) + kx of row o; the rest zero
+  for (int i = tid; i < C_OUT * CFM_WS; i += NTHREADS) {
+    const int o = i / CFM_WS, k = i % CFM_WS, p = k / 8, kx = k % 8;
+    ws[i] = __float2bfloat16_rn(
+        p < CFM_PAIRS && kx < K ? w[o * TAPS + p * K + kx] : 0.f);
+  }
+
+  auto origin = [&](int item, int& b, int& oy0, int& ox0) {
+    const int gt = (int)blockIdx.x + item * (int)gridDim.x;
+    b = gt / tiles;
+    const int tile = gt % tiles;
+    oy0 = (tile / ntx) * CFM_TH;
+    ox0 = (tile % ntx) * CFM_TW;
+  };
+  // the tile's input rows 2 oy0 - 3 .., columns 2 ox0 - 4 .. (zero outside
+  // the image) into raw[item % 2]
+  auto fetch = [&](int item) {
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 4;
+    float* rd = raw + (item & 1) * CFM_RAW;
+    const float* xb0 = x + (size_t)b * C_IN * H * W;
+    if (vec) {  // W and ix0 are multiples of 4: a float4 is in or out
+      for (int e = tid; e < CFM_RAW / 4; e += NTHREADS) {
+        const int f = e % (CFM_RC / 4), row = e / (CFM_RC / 4);
+        const int c = row / CFM_IR, yy = iy0 + row % CFM_IR;
+        const int xx = ix0 + 4 * f;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        cp_async_f32x4(rd + 4 * e,
+                       in ? xb0 + ((size_t)c * H + yy) * W + xx : xb0, in);
+      }
+    } else {
+      for (int e = tid; e < CFM_RAW; e += NTHREADS) {
+        const int col = e % CFM_RC, row = e / CFM_RC;
+        const int c = row / CFM_IR, yy = iy0 + row % CFM_IR;
+        const int xx = ix0 + col;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        cp_async_f32(rd + e, in ? xb0 + ((size_t)c * H + yy) * W + xx : xb0,
+                     in);
+      }
+    }
+  };
+  // raw[item % 2] rounded into words: word m of a row is (x[s], x[s + 1])
+  // at s = 2 ox0 - 3 + 2 m, staged columns 2 m + 1 and 2 m + 2
+  auto convert = [&](int item) {
+    const float* rs = raw + (item & 1) * CFM_RAW;
+    unsigned* xd = xb + (item & 1) * CFM_XB;
+    for (int e = tid; e < CFM_XB; e += NTHREADS) {
+      const int m = e % CFM_RW;
+      const float* r = rs + (e / CFM_RW) * CFM_RC + 2 * m + 1;
+      xd[e] = m < CFM_RW - 1 ? pack_bf16(r[0], r[1]) : 0u;
+    }
+  };
+
+  if (n_items > 0) fetch(0);
+  cp_async_commit();
+  if (n_items > 1) fetch(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // the first tile's input landed, the weights staged
+  if (n_items > 0) convert(0);
+
+  // float64 sums over the walk of channels 16 t4 + 8 h + g
+  double run1[2] = {0.0, 0.0}, run2[2] = {0.0, 0.0};
+  for (int item = 0; item < n_items; ++item) {
+    // the next tile's input landed; this tile's words formed; the last
+    // tile's MMAs done with the words formed next
+    cp_async_wait_all();
+    __syncthreads();
+    if (item + 1 < n_items) convert(item + 1);
+    if (item + 2 < n_items) fetch(item + 2);
+    cp_async_commit();
+
+    int b, oy0, ox0;
+    origin(item, b, oy0, ox0);
+    const int u = oy0 + warp;
+    if (u >= Ho) continue;  // warp-uniform
+    // this lane's word of input row 2 warp (ky = 0, c = 0)
+    const unsigned* xt =
+        xb + (item & 1) * CFM_XB + 2 * warp * CFM_RW + g + t4;
+    float acc[4][CFM_NT][4];
+#pragma unroll
+    for (int s = 0; s < CFM_KS; ++s) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(a[mt], ws + (16 * mt + (lane & 15)) * CFM_WS + 16 * s +
+                           8 * (lane >> 4));
+      const int p0 = 2 * s, p1 = 2 * s + 1;  // (c, ky) rows of the step
+      const unsigned* r0 = xt + ((p0 / K) * CFM_IR + p0 % K) * CFM_RW;
+      const unsigned* r1 = xt + ((p1 / K) * CFM_IR + p1 % K) * CFM_RW;
+#pragma unroll
+      for (int nt = 0; nt < CFM_NT; ++nt) {
+        const unsigned b0 = r0[8 * nt] & kmask;
+        const unsigned b1 = p1 < CFM_PAIRS ? r1[8 * nt] & kmask : 0u;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (s == 0)
+            mma_bf16(acc[mt][nt], a[mt], b0, b1);
+          else
+            mma_bf16_acc(acc[mt][nt], a[mt], b0, b1);
+        }
+      }
+    }
+
+    // act: channel c's words at positions 8 n + 2 t4 into the warp's rows
+    // [c][16 words] (16-byte chunk n at n ^ (c / 2 % 4): a quad's 8
+    // channels hit 8 distinct bank quads), then one 16-byte store per
+    // chunk; without vec_out, a word per store straight from the
+    // fragment
+    unsigned* sw = sa + warp * CFM_SW;
+    float s1[4][2], s2[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ch = 16 * mt + 8 * h + g;
+        bf16* row = act + (((size_t)b * C_OUT + ch) * Ho + u) * Wo;
+        float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < CFM_NT; ++nt) {
+          const int v = ox0 + 8 * nt + 2 * t4;  // Wo is even: v + 1 too
+          if (v >= Wo) continue;
+          const float d0 = acc[mt][nt][2 * h], d1 = acc[mt][nt][2 * h + 1];
+          const unsigned word = pack_bf16(d0, d1);
+          if (vec_out)
+            sw[16 * ch + 4 * (nt ^ ((ch >> 1) & 3)) + t4] = word;
+          else
+            *reinterpret_cast<unsigned*>(row + v) = word;
+          a1 += d0;
+          a1 += d1;
+          a2 += d0 * d0;
+          a2 += d1 * d1;
+        }
+        s1[mt][h] = a1;
+        s2[mt][h] = a2;
+      }
+    if (vec_out) {
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < C_OUT / 8; ++i) {
+        const int ch = 8 * i + (lane >> 2), n = lane & 3;
+        const int v = ox0 + 8 * n;
+        if (v < Wo)
+          *reinterpret_cast<uint4*>(
+              act + (((size_t)b * C_OUT + ch) * Ho + u) * Wo + v) =
+              *reinterpret_cast<const uint4*>(
+                  sw + 16 * ch + 4 * (n ^ ((ch >> 1) & 3)));
+      }
+    }
+    if (!stats) continue;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          s1[mt][h] += __shfl_xor_sync(FULL, s1[mt][h], o);
+          s2[mt][h] += __shfl_xor_sync(FULL, s2[mt][h], o);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float a1 = s1[0][h], a2 = s2[0][h];
+#pragma unroll
+      for (int mt = 1; mt < 4; ++mt)
+        if (t4 == mt) {
+          a1 = s1[mt][h];
+          a2 = s2[mt][h];
+        }
+      run1[h] += (double)a1;
+      run2[h] += (double)a2;
+    }
+  }
+  if (!stats) return;
+  __syncthreads();  // every warp done with its act words
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = 16 * t4 + 8 * h + g;
+    st[(2 * warp) * C_OUT + o] = run1[h];
+    st[(2 * warp + 1) * C_OUT + o] = run2[h];
+  }
+  __syncthreads();
+  if (tid < 2 * C_OUT) {
+    // partials[cta][k][o]: channel o's 8 warps, in order
+    const int k = tid / C_OUT, o = tid % C_OUT;
+    double s = 0.0;
+    for (int wv = 0; wv < CFM_WARPS; ++wv) s += st[(2 * wv + k) * C_OUT + o];
+    partials[(size_t)blockIdx.x * 2 * C_OUT + k * C_OUT + o] = s;
+  }
+}
+
+// 6d. The bfloat16 BN-pool as a strip walk (section 2's function; the
+// float32 form stays one thread per pooled element). A warp walks down a
+// strip of 128 pre-pool columns of one plane, one window row (two pre-pool
+// rows) a step: lanes 0-15 read row 2k, lanes 16-31 row 2k + 1, 8 columns
+// a lane in one 16-byte load, kept two steps ahead in registers. Each lane
+// forms r = relu(act alpha + beta) once per element and the maximum of
+// each of its 4 windows' three columns in its row; the column left of a
+// lane comes from its neighbour by __shfl_up_sync (0 at the plane's edge,
+// where the pad never wins over relu; a load at a strip's edge). Window
+// row k is the maximum of rows 2k - 1, 2k and 2k + 1: row 2k + 1 comes from
+// the upper half-warp by __shfl_xor_sync, and row 2k - 1 is its row of the
+// last step; lanes 0-15 round it once and store 4 pooled bfloat16 as one
+// 8-byte store. Work: units of BP_CH window rows of a strip, walked as the
+// pool backward's (section 3): warp w takes a run of units and walks each
+// plane's part of it top-down, reading one halo row above. No division per
+// element. Rows whose width is not a multiple of 8 or misaligned tensors
+// take 2-byte loads and stores (kVec false). fmaxf is exact, so pooled is
+// bitwise the plain version's in any order. Bound by bytes (act read, 2
+// bytes, and pooled written, half a byte, per act element: 0.20 ms at B =
+// 256, 256x256).
+
+constexpr int BP_SW = 128;                // pre-pool columns per strip
+constexpr int BP_CH = 8;                  // window rows per unit
+constexpr int BP_CTAS = 4;                // CTAs per SM
+constexpr int BP_WARPS = NTHREADS / 32;
+
+template <bool kVec>
+__global__ void __launch_bounds__(NTHREADS, BP_CTAS)
+stem_bnpool_strip_kernel(const bf16* __restrict__ act,
+                         const float* __restrict__ coef,
+                         bf16* __restrict__ out, int B, int Ho, int Wo) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int col = lane & 15, hr = lane >> 4;  // column group, row parity
+  const int Hq = Ho / 2, Wq = Wo / 2;
+  const int nstrips = cdiv(Wo, BP_SW), nchunks = cdiv(Hq, BP_CH);
+  const long long units = (long long)B * C_OUT * nstrips * nchunks;
+  const long long nw = (long long)gridDim.x * BP_WARPS;
+  const long long wid = (long long)blockIdx.x * BP_WARPS + (tid >> 5);
+  const long long u_end = (wid + 1) * units / nw;
+
+  for (long long un = wid * units / nw; un < u_end;) {
+    // a segment: the run's units in one strip of one plane
+    const long long ps = un / nchunks;  // plane * nstrips + strip
+    const long long seg_end = min(u_end, (ps + 1) * nchunks);
+    const int k_first = (int)(un - ps * nchunks) * BP_CH;
+    const int k_last = min(Hq, (int)(seg_end - ps * nchunks) * BP_CH);
+    const long long plane = ps / nstrips;
+    const int strip = (int)(ps - plane * nstrips);
+    const int c = (int)(plane % C_OUT);
+    const float alpha = coef[c], beta = coef[C_OUT + c];
+    const bf16* ap = act + (size_t)plane * Ho * Wo;
+    bf16* op = out + (size_t)plane * Hq * Wq;
+    const int x0 = strip * BP_SW + 8 * col;  // the lane's first column
+    const bool edge = col == 0 && strip > 0;  // its left column is a load
+    un = seg_end;
+
+    auto relu_bn = [&](float a) {
+      return fmaxf(bn_out(a, alpha, beta), 0.f);
+    };
+    // row y at the lane's 8 columns, raw (zero past the row's end)
+    auto load = [&](int y) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      const bf16* src = ap + (size_t)y * Wo + x0;
+      if (kVec) {
+        if (x0 < Wo) q = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        const unsigned short* hs =
+            reinterpret_cast<const unsigned short*>(src);
+        unsigned wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (x0 + e < Wo)
+            wd[e / 2] |= (unsigned)__ldg(hs + e) << (16 * (e & 1));
+        q = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+      return q;
+    };
+    // the maxima of r over the lane's 4 windows' columns in row y
+    auto row_max = [&](int y, const uint4 q, float (&m)[4]) {
+      const unsigned wd[4] = {q.x, q.y, q.z, q.w};
+      float r[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // bfloat16 widened: its bits on top
+        r[2 * e] = x0 + 2 * e < Wo ? relu_bn(__uint_as_float(wd[e] << 16))
+                                   : 0.f;
+        r[2 * e + 1] = x0 + 2 * e + 1 < Wo
+                           ? relu_bn(__uint_as_float(wd[e] & 0xffff0000u))
+                           : 0.f;
+      }
+      const float up = __shfl_up_sync(FULL, r[7], 1);
+      float left = col > 0 ? up : 0.f;
+      if (edge) left = relu_bn(__bfloat162float(ap[(size_t)y * Wo + x0 - 1]));
+      m[0] = fmaxf(fmaxf(left, r[0]), r[1]);
+#pragma unroll
+      for (int j = 1; j < 4; ++j)
+        m[j] = fmaxf(fmaxf(r[2 * j - 1], r[2 * j]), r[2 * j + 1]);
+    };
+
+    // top: the upper half's row 2k - 1 of the last step (0 above the plane)
+    float top[4] = {0.f, 0.f, 0.f, 0.f};
+    if (k_first > 0) row_max(2 * k_first - 1, load(2 * k_first - 1), top);
+    uint4 q0 = load(2 * k_first + hr);
+    uint4 q1 = k_first + 1 < k_last ? load(2 * k_first + 2 + hr)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+    for (int k = k_first; k < k_last; ++k) {
+      const uint4 q = q0;
+      q0 = q1;
+      if (k + 2 < k_last) q1 = load(2 * k + 4 + hr);
+      float m[4], pooled[4];
+      row_max(2 * k + hr, q, m);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float below = __shfl_xor_sync(FULL, m[j], 16);
+        const float above = __shfl_xor_sync(FULL, top[j], 16);
+        pooled[j] = fmaxf(fmaxf(above, m[j]), below);
+        top[j] = m[j];  // the upper half's row 2k + 1
+      }
+      if (hr == 0 && x0 < Wo) {
+        bf16* dst = op + (size_t)k * Wq + x0 / 2;
+        if (kVec) {
+          uint2 o;
+          o.x = pack_bf16(pooled[0], pooled[1]);
+          o.y = pack_bf16(pooled[2], pooled[3]);
+          *reinterpret_cast<uint2*>(dst) = o;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (x0 / 2 + j < Wq) dst[j] = __float2bfloat16_rn(pooled[j]);
+        }
+      }
+    }
+  }
+}
+
 template <typename F>
 int set_smem(F* kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -1893,6 +2314,47 @@ int launch_conv_dx_mma(const bf16* act, const bf16* dn, const float* coef,
   return (int)cudaGetLastError();
 }
 
+// 16-byte copies of x where it is 16-byte aligned (its rows, W a multiple
+// of 4, then are too); 16-byte stores of act where it is 16-byte aligned
+// and its rows a multiple of 8 elements.
+int launch_conv_fwd_mma(const float* x, const float* w, bf16* act,
+                        double* partials, int B, int H, int W, int ctas,
+                        void* stream) {
+  int err = set_smem(stem_conv_fwd_mma_kernel, CFM_SMEM);
+  if (err != 0) return err;
+  const int flags = ((uintptr_t)x % 16 == 0) |
+                    ((uintptr_t)act % 16 == 0 && (W / 2) % 8 == 0) << 1;
+  stem_conv_fwd_mma_kernel<<<ctas, NTHREADS, CFM_SMEM,
+                             (cudaStream_t)stream>>>(
+      x, w, act, partials, B, H, W, flags);
+  return (int)cudaGetLastError();
+}
+
+// A grid of BP_CTAS CTAs per SM, at most one warp per unit (the results
+// do not depend on the grid); 16-byte loads and 8-byte stores where the
+// rows are a multiple of 8 elements and both tensors so aligned.
+int launch_bnpool_strip(const bf16* act, const float* coef, bf16* out,
+                        int B, int Ho, int Wo, void* stream) {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err != 0) return err;
+  const long long units = (long long)B * C_OUT * cdiv(Wo, BP_SW) *
+                          cdiv(Ho / 2, BP_CH);
+  const long long want = (units + BP_WARPS - 1) / BP_WARPS;
+  const int ctas = want < (long long)sms * BP_CTAS ? (int)want
+                                                   : sms * BP_CTAS;
+  const bool vec = Wo % 8 == 0 && (uintptr_t)act % 16 == 0 &&
+                   (uintptr_t)out % 8 == 0;
+  auto kernel = vec ? stem_bnpool_strip_kernel<true>
+                    : stem_bnpool_strip_kernel<false>;
+  kernel<<<ctas, NTHREADS, 0, (cudaStream_t)stream>>>(act, coef, out, B, Ho,
+                                                      Wo);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1907,7 +2369,8 @@ extern "C" {
 // Tiles per image of a kernel on an input of H x W (the tile shapes live
 // only in this file): kernel 0 conv forward, 1 pool backward (its units:
 // PB_CH window rows of a 128-column strip, per plane), 2 dW (both forms),
-// 3 d_x, 4 d_x's bfloat16 form; -1 for another kernel.
+// 3 d_x, 4 d_x's bfloat16 form, 5 the conv forward's bfloat16 form; -1 for
+// another kernel.
 int r2l_stem_tiles(int kernel, int H, int W) {
   const int Ho = H / 2, Wo = W / 2;
   switch (kernel) {
@@ -1916,16 +2379,18 @@ int r2l_stem_tiles(int kernel, int H, int W) {
     case 2: return cdiv(Ho, DW_TH) * cdiv(Wo, DW_TW);
     case 3: return cdiv(Ho, DX_TU) * cdiv(Wo, DX_TV);
     case 4: return cdiv(Ho, DXM_TU) * cdiv(Wo, DXM_TV);
+    case 5: return cdiv(Ho, CFM_TH) * cdiv(Wo, CFM_TW);
   }
   return -1;
 }
 
 // Grid of a kernel on a card with `sms` SMs: for those that walk all B x
-// tiles tiles with a stride of the grid (0 conv forward, 2 dW, 3 and 4 d_x) one
-// CTA per SM, at most one per tile; for the pool backward (1) PB_CTAS per
-// SM, at most one warp per unit; -1 for another kernel. A function of the
-// shape and the card only, so repeated launches are bitwise equal (the
-// pool backward's results do not depend on its grid at all).
+// tiles tiles with a stride of the grid (0 conv forward, 2 dW, 3 and 4
+// d_x) one CTA per SM, CFM_CTAS per SM for the bfloat16 conv forward (5),
+// at most one per tile; for the pool backward (1) PB_CTAS per SM, at most
+// one warp per unit; -1 for another kernel. A function of the shape and
+// the card only, so repeated launches are bitwise equal (the pool
+// backward's results do not depend on its grid at all).
 int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
   if (kernel == 1) {
     const long long units =
@@ -1933,29 +2398,31 @@ int r2l_stem_ctas(int kernel, int B, int H, int W, int sms) {
     const long long n = (units + PB_WARPS - 1) / PB_WARPS;
     return n < (long long)sms * PB_CTAS ? (int)n : sms * PB_CTAS;
   }
-  if (kernel < 0 || kernel > 4) return -1;
+  if (kernel < 0 || kernel > 5) return -1;
   const int n = B * r2l_stem_tiles(kernel, H, W);
-  return n < sms ? n : sms;
+  const int m = kernel == 5 ? CFM_CTAS * sms : sms;
+  return n < m ? n : m;
 }
 
 // `use_bf16` nonzero selects the bfloat16 form: act, pooled, d_n and the pooled
 // cotangent are then __nv_bfloat16 (x, w, coef, dW and d_x stay float).
 
 // partials: [ctas][2][64] float64 (sum, sum of squares), or null to skip
-// the statistics (eval mode).
+// the statistics (eval mode). `ctas` from r2l_stem_ctas(0, ...) for
+// float32, (5, ...) for bfloat16.
 int r2l_stem_conv_fwd(const float* x, const float* w, void* act,
                       double* partials, int B, int H, int W, int ctas,
                       int use_bf16, void* stream) {
-  return use_bf16 ? launch_conv_fwd(x, w, (bf16*)act, partials, B, H, W, ctas,
-                                stream)
+  return use_bf16 ? launch_conv_fwd_mma(x, w, (bf16*)act, partials, B, H, W,
+                                        ctas, stream)
               : launch_conv_fwd(x, w, (float*)act, partials, B, H, W, ctas,
                                 stream);
 }
 
 int r2l_stem_bnpool(const void* act, const float* coef, void* out, int B,
                     int Ho, int Wo, int use_bf16, void* stream) {
-  return use_bf16 ? launch_bnpool((const bf16*)act, coef, (bf16*)out, B, Ho,
-                              Wo, stream)
+  return use_bf16 ? launch_bnpool_strip((const bf16*)act, coef, (bf16*)out,
+                                        B, Ho, Wo, stream)
               : launch_bnpool((const float*)act, coef, (float*)out, B, Ho,
                               Wo, stream);
 }
@@ -1998,8 +2465,9 @@ int r2l_stem_conv_dx(const void* act, const void* dn, const float* coef,
 
 // Kernel `which` of this file (0 conv forward, 1 BN-pool, 2 pool
 // backward, 3 dW, 4 d_x, 5 the pool backward's scalar form; 6-11 the same
-// in their bfloat16 forms, 9 and 10 the tensor-core kernels of section 6,
-// dW's long-sum instance): its name, registers per thread, CTAs per SM and
+// in their bfloat16 forms: 6, 9 and 10 the tensor-core kernels of section
+// 6, dW's long-sum instance, and 7 the strip walk of section 6d; 12 that
+// walk's scalar form): its name, registers per thread, CTAs per SM and
 // shared bytes per CTA (kernel_info.cuh); null past the last or on an
 // error.
 const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
@@ -2025,12 +2493,13 @@ const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
         (const void*)stem_pool_bwd_kernel<false, float>,
         "stem_pool_bwd_kernel<false>", NTHREADS, PB_SMEM, regs, ctas_per_sm,
         smem);
-    case 6: return r2l_occupancy((const void*)stem_conv_fwd_kernel<bf16>,
-                                 "stem_conv_fwd_kernel<bf16>", NTHREADS,
-                                 CF_SMEM, regs, ctas_per_sm, smem);
-    case 7: return r2l_occupancy((const void*)stem_bnpool_kernel<bf16>,
-                                 "stem_bnpool_kernel<bf16>", NTHREADS, 0,
-                                 regs, ctas_per_sm, smem);
+    case 6: return r2l_occupancy((const void*)stem_conv_fwd_mma_kernel,
+                                 "stem_conv_fwd_mma_kernel", NTHREADS,
+                                 CFM_SMEM, regs, ctas_per_sm, smem);
+    case 7: return r2l_occupancy(
+        (const void*)stem_bnpool_strip_kernel<true>,
+        "stem_bnpool_strip_kernel<true>", NTHREADS, 0, regs, ctas_per_sm,
+        smem);
     case 8: return r2l_occupancy(
         (const void*)stem_pool_bwd_kernel<true, bf16>,
         "stem_pool_bwd_kernel<true, bf16>", NTHREADS, PB_SMEM, regs,
@@ -2046,6 +2515,10 @@ const char* r2l_kernel_info(int which, int* regs, int* ctas_per_sm,
         (const void*)stem_pool_bwd_kernel<false, bf16>,
         "stem_pool_bwd_kernel<false, bf16>", NTHREADS, PB_SMEM, regs,
         ctas_per_sm, smem);
+    case 12: return r2l_occupancy(
+        (const void*)stem_bnpool_strip_kernel<false>,
+        "stem_bnpool_strip_kernel<false>", NTHREADS, 0, regs, ctas_per_sm,
+        smem);
   }
   return nullptr;
 }

@@ -47,9 +47,10 @@ C_OUT, C_IN, K = 64, 3, 7
 TAPS = C_IN * K * K
 # the storage dtypes of act, pooled, d_n and the pooled cotangent
 DTYPES = (torch.float32, torch.bfloat16)
-# kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes): d_x's
-# bfloat16 form walks tiles of its own
-_CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX, _CONV_DX_BF16 = range(5)
+# kernel ids of r2l_stem_tiles (csrc/stem.cu owns the tile shapes): the
+# bfloat16 forms of d_x and of the conv forward walk tiles of their own
+(_CONV_FWD, _POOL_BWD, _CONV_DW, _CONV_DX, _CONV_DX_BF16,
+ _CONV_FWD_BF16) = range(6)
 
 
 # --------------------------------------------------------------------------
@@ -317,7 +318,13 @@ def _ctas(lib, kernel, device, shape):
 def stem_conv(x, w, stats=True, dtype=torch.float32):
     """(act (B, 64, H/2, W/2) in ``dtype``, float64 sum of act, float64 sum
     of act^2) per channel; the sums are None without ``stats``. Kernel:
-    CUDA ``stem_conv_fwd_kernel``; plain: ``stem_conv_reference``."""
+    CUDA ``stem_conv_fwd_kernel`` on FMA units for float32, bound by
+    operations; for bfloat16 ``stem_conv_fwd_mma_kernel`` on bf16 tensor
+    cores, bound by bytes: the 64 channels by 8-position tiles by (c, ky)
+    rows of 8 taps, 11 k16 steps chained in the tensor core, act rounded
+    to bfloat16 and the sums taken from the float32 accumulators. The
+    partials (a row per CTA) are summed here in float64. Plain:
+    ``stem_conv_reference``."""
     check_stem_input(x, w)
     _check_dtype(dtype)
     if not _on_cuda((), (x, w)):
@@ -326,7 +333,8 @@ def stem_conv(x, w, stats=True, dtype=torch.float32):
     act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=dtype,
                       device=x.device)
     lib = _library()
-    ctas = _ctas(lib, _CONV_FWD, x.device, x.shape)
+    ctas = _ctas(lib, _CONV_FWD_BF16 if dtype == torch.bfloat16
+                 else _CONV_FWD, x.device, x.shape)
     partials = (torch.empty((ctas, 2, C_OUT), dtype=torch.float64,
                             device=x.device) if stats else None)
     rc = lib.r2l_stem_conv_fwd(
@@ -346,8 +354,10 @@ stem_conv.launches = stem_conv.launches_bf16 = 0
 
 def stem_bnpool(act, alpha, beta):
     """maxpool 3x3/2 pad 1 of relu(act * alpha + beta): (B, 64, Ho/2,
-    Wo/2) in act's dtype. Kernel: CUDA ``stem_bnpool_kernel``; plain:
-    ``stem_bnpool_reference``."""
+    Wo/2) in act's dtype. Kernel: CUDA ``stem_bnpool_kernel`` (a thread a
+    pooled element) for float32; for bfloat16 ``stem_bnpool_strip_kernel``,
+    warps walking 128-column strips of the planes, r formed once per
+    element; both bound by bytes. Plain: ``stem_bnpool_reference``."""
     b, c, ho, wo = act.shape
     if c != C_OUT or ho % 2 or wo % 2:
         raise ValueError(f"stem_bnpool takes (B, 64, Ho, Wo) with Ho, Wo "

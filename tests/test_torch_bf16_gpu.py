@@ -3,8 +3,10 @@ bfloat16 version and a float64 witness on the same bfloat16-rounded
 operands (``chip_smoke.stem_bf16_agreement``, the ``BF16_*`` limits), at
 the shapes of ``tests/test_torch_kernels_gpu.py`` (68x44 and B = 1100
 among them) and at shapes that cut the tensor-core tiles of dW and d_x at
-every edge, two launches bitwise equal; the two tensor-core kernels'
-SASS holding HMMA instructions, and the float32 forms' none; the bfloat16
+every edge, and at shapes that cut the conv forward's tensor-core tile
+and the BN-pool's strips, two launches bitwise equal; the three
+tensor-core kernels' SASS holding HMMA instructions, and the float32
+forms' none; the bfloat16
 ResNet with the stem flag launching the bfloat16 forms and no float32
 one; and what the forms refuse. Imports no JAX, so that it runs where the
 port runs:
@@ -80,6 +82,32 @@ def test_stem_bf16_forms_at_the_tensor_core_tile_edges(shape,
         assert ok, (name, stats)
 
 
+# The tensor-core conv forward tiles 8 x 32 positions (a warp a row, four
+# 8-position MMA tiles across); the BN-pool walks 128-column strips in
+# units of 8 window rows, 16-byte rows where Wo is a multiple of 8. Ho =
+# 10, Wo = 34: two rows and a column pair past a tile; Ho = 16, Wo = 40:
+# two tiles down, an 8-position MMA tile past one across; Ho = 6, Wo = 66:
+# less than a tile down, a column pair past two across, B = 2; Ho = 18,
+# Wo = 130: BN-pool one column pair past a strip (Wo % 8 = 2, the scalar
+# walk) and one window row past a unit; Wo = 136: 8 columns past a strip
+# (the 16-byte walk); Ho = 34, Wo = 264: two strips and 8 columns, two
+# units and a window row.
+FORWARD_EDGE_SHAPES = [(1, 3, 20, 68), (1, 3, 32, 80), (2, 3, 12, 132),
+                       (1, 3, 36, 260), (1, 3, 36, 272), (1, 3, 68, 528)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["isp", "random"])
+@pytest.mark.parametrize("shape", FORWARD_EDGE_SHAPES, ids=str)
+def test_stem_bf16_forms_at_the_forward_tile_and_strip_edges(
+        shape, inputs, cuda):  # noqa: F811
+    w, gamma, beta = stem_params(cuda)
+    x = stem_input(cuda, shape, inputs)
+    for name, (stats, ok) in stem_bf16_agreement(
+            x, w, gamma, beta, inputs == "random").items():
+        assert ok, (name, stats)
+
+
 def _sass_by_kernel(path):
     """{mangled kernel name: its SASS} of a built library."""
     tool = (shutil.which("cuobjdump")
@@ -111,6 +139,20 @@ def test_bf16_dw_and_dx_run_on_tensor_cores(cuda):  # noqa: F811
         assert all(mma.search(text) for text in bodies(key)), key
     for key in ("stem_conv_dw_kernelIf", "stem_conv_dx_kernelIf"):
         assert not any(mma.search(text) for text in bodies(key)), key
+
+
+@pytest.mark.gpu
+def test_bf16_conv_forward_runs_on_tensor_cores(cuda):  # noqa: F811
+    """The bfloat16 conv forward's kernel holds tensor-core MMAs in the
+    built library's SASS; the float32 conv forward holds none."""
+    load("stem")
+    sass = _sass_by_kernel(library_path("stem"))
+    mma = re.compile(r"\bH(G)?MMA\b")
+    for key, want in (("stem_conv_fwd_mma_kernel", True),
+                      ("stem_conv_fwd_kernelIf", False)):
+        found = [text for name, text in sass.items() if key in name]
+        assert found, (key, sorted(sass))
+        assert all(bool(mma.search(text)) == want for text in found), key
 
 
 @pytest.mark.gpu

@@ -1,20 +1,23 @@
-"""The stem's bfloat16 dW and d_x on the card: this checkout's kernels
-against another checkout's (a parent commit) on the same inputs, in one
-process, on one card.
+"""The stem's bfloat16 forms on the card: this checkout's kernels against
+another checkout's (a parent commit) on the same inputs, in one process,
+on one card.
 
 Builds ``<parent>/raw2logit_tpu_torch/csrc/stem.cu`` with nvcc into
-``build/parent/`` and calls its C interface directly (its dW partials are
-two rows per CTA, its d_x grid kernel id 3, as the wrapper of that time
-called them); this checkout's forms run through ``stem_conv_dw`` and
-``stem_conv_dx``. Prints one JSON line per check and per timing:
+``build/parent/`` and calls its C interface directly (its conv forward
+grid kernel id 0, its dW partials two rows per CTA, its d_x grid kernel
+id 3, as the wrapper of that time called them); this checkout's forms run
+through the wrappers of ``kernels/stem.py``. Prints one JSON line per
+check and per timing:
 
-- check: each form of both checkouts against the plain version and a
-  float64 witness (``chip_smoke.grad_agreement``: STEM_GRAD_TOL,
-  STEM_F64_FACTOR, bitwise repeat) at ``--check-shapes``;
-- times: CUDA-event ms of both checkouts' forms and of cuDNN's bfloat16
-  wgrad and dgrad (``aten.convolution_backward``) at B in ``--batches``,
-  256x256, in turns parent, this, this, parent, with the card's name and
-  power limit.
+- check: this checkout's five bfloat16 forms against their plain versions
+  and float64 witnesses under ``chip_smoke.stem_bf16_agreement``'s gates
+  at ``--check-shapes``, on the ISP's outputs and on random inputs with
+  planted ties; and the parent's BN-pool bitwise equal to this one's;
+- times: CUDA-event ms of both checkouts' conv forward, BN-pool, dW and
+  d_x, and of the nearest library call in bfloat16 (``F.conv2d``,
+  cuDNN's wgrad and dgrad by ``aten.convolution_backward``; none for
+  BN-pool) at B in ``--batches``, 256x256, in turns parent, this, this,
+  parent, with the card's name and power limit.
 
     python tools/stem_bf16_ab.py --parent build/parent_tree
 
@@ -32,14 +35,12 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from chip_smoke import (BF16, SIZE, cuda_ms, grad_agreement,  # noqa: E402
+from chip_smoke import (BF16, SIZE, cuda_ms, stem_bf16_agreement,  # noqa: E402
                         stem_input, stem_params)
 from raw2logit_tpu_torch.kernels import build as kbuild  # noqa: E402
 from raw2logit_tpu_torch.kernels.stem import (  # noqa: E402
-    bn_backward_coef, bn_fold, bn_input_cotangent, batch_stats, rounded,
-    stem_bnpool, stem_conv, stem_conv_dw, stem_conv_dw_reference,
-    stem_conv_dx, stem_conv_dx_reference, stem_pool_bwd)
-from raw2logit_tpu_torch.ops.filters import full_float32  # noqa: E402
+    bn_backward_coef, bn_fold, bn_input_cotangent, batch_stats, stem_bnpool,
+    stem_conv, stem_conv_dw, stem_conv_dx, stem_pool_bwd)
 
 C_OUT, TAPS = 64, 147
 
@@ -66,22 +67,51 @@ def parent_library(tree):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(out)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.r2l_stem_conv_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      i32, ptr]
+    lib.r2l_stem_bnpool.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.r2l_stem_conv_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                      i32, i32, ptr]
     lib.r2l_stem_conv_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                      i32, i32, ptr]
     lib.r2l_stem_ctas.argtypes = [i32, i32, i32, i32, i32]
-    for fn in (lib.r2l_stem_conv_dw, lib.r2l_stem_conv_dx, lib.r2l_stem_ctas):
+    for fn in (lib.r2l_stem_conv_fwd, lib.r2l_stem_bnpool,
+               lib.r2l_stem_conv_dw, lib.r2l_stem_conv_dx,
+               lib.r2l_stem_ctas):
         fn.restype = i32
     return lib
 
 
 def parent_forms(lib, device):
-    """(dW, d_x) callables of the parent's bfloat16 forms."""
+    """{form: callable} of the parent's bfloat16 conv forward, BN-pool, dW
+    and d_x, called as this checkout's wrappers are."""
     sms = kbuild.sm_count(device.index or 0)
 
     def stream():
         return torch.cuda.current_stream(device).cuda_stream
+
+    def fwd(x, w):
+        b, _, h, wd = x.shape
+        ctas = lib.r2l_stem_ctas(0, b, h, wd, sms)
+        act = torch.empty((b, C_OUT, h // 2, wd // 2), dtype=BF16,
+                          device=device)
+        part = torch.empty((ctas, 2, C_OUT), dtype=torch.float64,
+                           device=device)
+        rc = lib.r2l_stem_conv_fwd(x.data_ptr(), w.data_ptr(), act.data_ptr(),
+                                   part.data_ptr(), b, h, wd, ctas, 1,
+                                   stream())
+        assert rc == 0, rc
+        return act, part.sum(0)
+
+    def bnpool(act, alpha, shift):
+        b, _, ho, wo = act.shape
+        out = torch.empty((b, C_OUT, ho // 2, wo // 2), dtype=BF16,
+                          device=device)
+        cf = torch.stack([alpha, shift]).contiguous()
+        rc = lib.r2l_stem_bnpool(act.data_ptr(), cf.data_ptr(),
+                                 out.data_ptr(), b, ho, wo, 1, stream())
+        assert rc == 0, rc
+        return out
 
     def dw(x, act, d_n, coef):
         b, _, h, w = x.shape
@@ -108,12 +138,22 @@ def parent_forms(lib, device):
         assert rc == 0, rc
         return out
 
-    return dw, dx
+    return {"fwd": fwd, "bnpool": bnpool, "dw": dw, "dx": dx}
+
+
+THIS = {"fwd": lambda x, w: stem_conv(x, w, dtype=BF16),
+        "bnpool": stem_bnpool, "dw": stem_conv_dw, "dx": stem_conv_dx}
 
 
 def operands(device, shape, inputs="random"):
     """x, w, and the bfloat16 act, d_n and coefficients of the backward,
     as ``chip_smoke.stem_bf16_agreement`` makes them."""
+    x, w, act, d_n, coef, _ = forward_operands(device, shape, inputs)
+    return x, w, act, d_n, coef
+
+
+def forward_operands(device, shape, inputs="random"):
+    """``operands`` and the BN-pool's (alpha, shift)."""
     w, gamma, beta = stem_params(device)
     x = stem_input(device, shape, inputs)
     with torch.no_grad():
@@ -126,62 +166,61 @@ def operands(device, shape, inputs="random"):
         dp = torch.randn(pooled.shape, device=device, generator=gen).to(BF16)
         d_n, sd, sdx = stem_pool_bwd(act, dp, alpha, shift, mean, inv)
         coef = bn_backward_coef(gamma, mean, inv, sd, sdx, n)
-    return x, w, act, d_n, coef
+    return x, w, act, d_n, coef, (alpha, shift)
 
 
-def check(device, shapes, forms):
+def check(device, shapes, parent):
     ok_all = True
+    w, gamma, beta = stem_params(device)
     for shape in shapes:
-        x, w, act, d_n, coef = operands(device, shape)
-        d_a = rounded(bn_input_cotangent(act.float(), d_n.float(), coef),
-                      BF16).double()
-        b, _, h, wd = x.shape
-        with full_float32():
-            dw64 = torch.nn.grad.conv2d_weight(
-                rounded(x, BF16).double(), (64, 3, 7, 7), d_a, stride=2,
-                padding=3)
-            dx64 = torch.nn.grad.conv2d_input(
-                (b, 3, h, wd), rounded(w, BF16).double(), d_a, stride=2,
-                padding=3)
-        plain_dw = stem_conv_dw_reference(x, act, d_n, coef)
-        plain_dx = stem_conv_dx_reference(act, d_n, coef, w)
-        for which, (dw, dx) in forms.items():
-            for name, fn, plain, wit in (
-                    ("dw", lambda: dw(x, act, d_n, coef), plain_dw, dw64),
-                    ("dx", lambda: dx(act, d_n, coef, w), plain_dx, dx64)):
-                stats, ok = grad_agreement(fn(), fn(), plain, wit)
+        for inputs, ties in (("isp", False), ("random", True)):
+            x = stem_input(device, shape, inputs)
+            for name, (stats, ok) in stem_bf16_agreement(
+                    x, w, gamma, beta, ties).items():
                 ok_all &= ok
-                emit({"check": name, "which": which, "shape": list(shape),
+                emit({"check": name, "shape": list(shape), "inputs": inputs,
                       "ok": ok, **stats})
-        del x, act, d_n, d_a, dw64, dx64
+            _, _, act, _, _, (alpha, shift) = forward_operands(
+                device, shape, inputs)
+            same = torch.equal(parent["bnpool"](act, alpha, shift),
+                               stem_bnpool(act, alpha, shift))
+            ok_all &= same
+            emit({"check": "bnpool_parent_bitwise", "shape": list(shape),
+                  "inputs": inputs, "ok": same})
+            del x, act
     return ok_all
 
 
-def times(device, batches, forms, iters):
+def times(device, batches, parent, iters):
     for b in batches:
-        x, w, act, d_n, coef = operands(device, (b, 3, SIZE, SIZE))
+        x, w, act, d_n, coef, (alpha, shift) = forward_operands(
+            device, (b, 3, SIZE, SIZE))
         d_a = bn_input_cotangent(act.float(), d_n.float(), coef).to(BF16)
         xb, wb = x.to(BF16), w.to(BF16)
         one = [None]
+        args = {"fwd": (x, w), "bnpool": (act, alpha, shift),
+                "dw": (x, act, d_n, coef), "dx": (act, d_n, coef, w)}
+        library = {
+            "fwd": lambda _: torch.nn.functional.conv2d(xb, wb, stride=2,
+                                                        padding=3),
+            "bnpool": None,
+            "dw": lambda _: torch.ops.aten.convolution_backward(
+                d_a, xb, wb, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1,
+                [False, True, False]),
+            "dx": lambda _: torch.ops.aten.convolution_backward(
+                d_a, xb, wb, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1,
+                [True, False, False])}
         row = {"batch": b, "card": card_power()}
         with torch.no_grad():
-            for name, mask in (("dw", [False, True, False]),
-                               ("dx", [True, False, False])):
-                runs = {which: ((lambda _, f=f: f[0](x, act, d_n, coef))
-                                if name == "dw" else
-                                (lambda _, f=f: f[1](act, d_n, coef, w)))
-                        for which, f in forms.items()}
-                order = ["parent", "this", "this", "parent"]
+            for name, a in args.items():
+                runs = {"parent": lambda _, f=parent[name], a=a: f(*a),
+                        "this": lambda _, f=THIS[name], a=a: f(*a)}
                 got = {k: [] for k in runs}
-                for which in order:
+                for which in ("parent", "this", "this", "parent"):
                     got[which].append(cuda_ms(runs[which], one, iters))
-                row[name] = {**got,
-                             "cudnn_ms": cuda_ms(
-                                 lambda _, m=mask:
-                                 torch.ops.aten.convolution_backward(
-                                     d_a, xb, wb, None, [2, 2], [3, 3],
-                                     [1, 1], False, [0, 0], 1, m), one,
-                                 iters)}
+                lib = library[name]
+                row[name] = {**got, "library_ms": (
+                    None if lib is None else cuda_ms(lib, one, iters))}
         emit({"times": row})
         del x, act, d_n, d_a, xb
 
@@ -202,12 +241,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     emit({"build": kbuild.build(["stem"]),
           "occupancy": kbuild.kernel_info("stem")})
-    forms = {"parent": parent_forms(parent_library(args.parent), device),
-             "this": (stem_conv_dw, stem_conv_dx)}
+    parent = parent_forms(parent_library(args.parent), device)
     shapes = [tuple(int(v) for v in s.split(","))
               for s in args.check_shapes.split(";") if s]
-    ok = check(device, shapes, forms)
-    times(device, args.batches, forms, args.iters)
+    ok = check(device, shapes, parent)
+    times(device, args.batches, parent, args.iters)
     emit({"ok": ok})
     sys.exit(0 if ok else 1)
 
