@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and drift-forensics paths, the
 fused ResNet stem, the static ISP's drift-synthesis path, segmentation,
-the neural and identity ISPs and the drift evaluation harness, on one
-NVIDIA GPU and check them.
+the neural and identity ISPs, the drift evaluation harness, and the
+folder datasets and the tile store, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,8 @@ line):
    and matmul, so that every comparison below is full f32.
 2. build: compile the CUDA sources (``fused_isp_fwd.cu``,
    ``fused_isp_bwd.cu``, ``ssim_aux.cu``, ``stem.cu``) with nvcc, in
-   parallel; print nvcc's register and spill report and each kernel's
+   parallel, then the tile store (``tilestore.cpp``, the host C++
+   compiler); print nvcc's register and spill report and each kernel's
    registers, CTAs per SM and shared bytes (``r2l_kernel_info``).
 3. kernel vs plain: the serving kernel against its plain PyTorch
    version, at the serving shape (B=32, 256x256: edge and corner tiles
@@ -199,8 +200,24 @@ line):
 32a. bf16 cli: a 5-step --test_run with --compute_dtype bfloat16,
    --classifier_pretrained (a synthesised weights/resnet18.npz in the JAX
    package's layout) and --profile, in a temporary directory.
+32b. folder data, with neither PIL nor pandas: 940 seeded 256x256
+   16-bit mosaics (the Raw-Microscopy count) written as DNGs, labelled in
+   9 classes, read by ``FolderClassification``; one per-item-decode epoch
+   through ``Loader``; float32 and uint16 tile stores of the folder (build
+   s, bytes, a gather epoch at B = 32 and 256): the float32 store's
+   batches bitwise the folder's in the same shuffled order, the uint16
+   store's within 1 ulp, a ``Subset`` of the store on k_fold's train
+   indices bitwise the same ``Subset`` of the folder; one epoch of the
+   full-width train step (ISP kernels, ResNet-18, B = 32, stem flag off
+   and on) fed by the store and by the folder: images/s, launches per
+   step, idle share, the first step's loss within 1e-6; two 3000x4000
+   drone frames with car masks as DNGs, read by ``FolderSegmentation``,
+   tiled to 256 with ``split_img``, the tiles with a car in a
+   segmentation store, a gather epoch, 2 U-Net++ steps at B = 32 fed by
+   it.
 33. the ``kernels`` line (with each kernel's launches on the segmentation
-   path; the bfloat16 forms as ``<kernel>_bf16``), then the ``ok`` line.
+   path and on the store-fed train epochs; the bfloat16 forms as
+   ``<kernel>_bf16``), then the ``ok`` line.
 """
 
 import contextlib
@@ -220,11 +237,16 @@ import torch
 
 from raw2logit_tpu_torch.data import (DRONE_CAMERA_PARAMS,
                                       MICROSCOPY_CAMERA_PARAMS,
-                                      ArrayDataset,
+                                      ArrayDataset, FolderClassification,
+                                      FolderSegmentation, Loader, Subset,
                                       SyntheticRawClassification,
                                       SyntheticRawSegmentation,
                                       dataset_stats, k_fold, load_image,
-                                      precompute_pipeline_rgb, write_dng)
+                                      precompute_pipeline_rgb, read_dng,
+                                      split_img, write_dng)
+from raw2logit_tpu_torch.data import tilestore
+from raw2logit_tpu_torch.data.tiling import keeps_tile
+from raw2logit_tpu_torch.data.tilestore import TileStore, build_store
 from raw2logit_tpu_torch.evaluation import CORRUPTIONS, ConfusionMetrics
 from raw2logit_tpu_torch.evaluation import abtesting
 from raw2logit_tpu_torch.evaluation.abtesting import (CORRUPTION_LIST,
@@ -801,12 +823,16 @@ SOURCES = ("fused_isp_fwd", "fused_isp_bwd", "ssim_aux", "stem")
 
 
 def phase_build():
-    """Compile the four sources in parallel; print nvcc's register and
+    """Compile the four sources in parallel, then the tile store's C++
+    (``data/tilestore.py``, the host compiler); print nvcc's register and
     spill report and each kernel's registers and CTAs per SM."""
     t0 = time.perf_counter()
     report = build(list(SOURCES))
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": report,
+    seconds = time.perf_counter() - t0
+    store_lib = tilestore.load_library()._name
+    emit({"phase": "build", "seconds": seconds, "compiled": report,
+          "tilestore": {"seconds": time.perf_counter() - t0 - seconds,
+                        "library": os.path.relpath(store_lib, REPO)},
           "occupancy": [k for name in SOURCES for k in kernel_info(name)]})
 
 
@@ -4547,6 +4573,288 @@ def phase_bf16_cli(device, batch=SERVE_BATCH):
     return res
 
 
+# --- the folder datasets and the tile path --------------------------------
+
+# The Raw-Microscopy count (SURVEY.md:360), labelled in 9 classes.
+FOLDER_N, FOLDER_CLASSES = 940, 9
+# The store-fed first step's loss against the folder-fed one's (the same
+# weights and, bitwise, the same batch).
+FOLDER_LOSS_REL = 1e-6
+# x * (1 / 65535) in the store's gather against x / 65535 in
+# FolderClassification: at most one float32 ulp apart.
+STORE_U16_ULPS = 1
+DRONE_TILE, DRONE_CARS = 256, 60  # cars (rectangles) per drone frame
+FOLDER_PROFILED = 5
+
+
+def timed_epoch(loader):
+    """(the batches of one epoch of ``loader``, its wall seconds)."""
+    t0 = time.perf_counter()
+    batches = list(loader)
+    return batches, time.perf_counter() - t0
+
+
+def same_batches(got, want):
+    return len(got) == len(want) and all(
+        np.array_equal(gx, wx) and np.array_equal(gy, wy)
+        for (gx, gy), (wx, wy) in zip(got, want))
+
+
+def endless(loader):
+    """``loader``'s batches, epoch after epoch."""
+    while True:
+        yield from loader
+
+
+def folder_step(device, proc, clf, stem, loader):
+    """A train step at full width through the ISP kernels (the fused stem
+    or not) on copies of ``proc`` and ``clf``, as fn(_) (for
+    ``profile_calls``) taking the next batch of ``loader`` on each
+    call."""
+    _, c, state, step = train_copy(TrainConfig(lr=TRAIN_LR), proc, clf)
+    c.stem_kernel = stem
+    batches = endless(loader)
+
+    def run(_):
+        raw, y = next(batches)
+        return step(state, torch.as_tensor(raw, device=device),
+                    torch.as_tensor(y, device=device))
+    return run
+
+
+def folder_train(device, smi, datasets, batch):
+    """One epoch of the train step fed by each of ``datasets`` ({feed:
+    dataset}), with the stem flag off and on: images/s, launches per step,
+    the first step's loss (the store-fed against the folder-fed), then
+    each feed's device idle share over FOLDER_PROFILED more steps.
+    Returns the store-fed epochs' launches."""
+    proc = processor(device, use_kernel=True).train()
+    clf = train_classifier(device)
+    store_launches = launches()
+    for stem in (False, True):
+        # cuDNN's algorithm search and first launches, outside the epochs
+        warm = Loader(datasets["store"], batch, shuffle=True, seed=SEED + 1)
+        run = folder_step(device, proc, clf, stem, warm)
+        for _ in range(3):
+            run(None)
+    for stem in (False, True):
+        first = {}
+        for feed, ds in datasets.items():
+            loader = Loader(ds, batch, shuffle=True, seed=SEED)
+            run = folder_step(device, proc, clf, stem, loader)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = run(None)["loss"].clone()
+            for _ in range(len(loader) - 1):
+                run(None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seen = counts()
+            steps = len(loader)
+            want = launches(fwd_train=steps, bwd_res=steps,
+                            stem_fwd=steps if stem else 0,
+                            stem_bwd=steps if stem else 0)
+            first[feed] = float(loss)
+            kernels, busy, wall_ms = profile_calls(
+                folder_step(device, proc, clf, stem, loader), None,
+                FOLDER_PROFILED)
+            emit({"phase": "folder_data", "what": "train_epoch",
+                  "feed": feed, "stem_kernel": stem, "batch": batch,
+                  "steps": steps, "epoch_s": wall,
+                  "imgs_per_s": steps * batch / wall,
+                  "launches_per_step": {k: v / steps for k, v in seen.items()
+                                        if v},
+                  "first_loss": first[feed],
+                  "profiled_steps": FOLDER_PROFILED, "wall_ms": wall_ms,
+                  "device_busy_ms": busy,
+                  "device_idle_share": 1 - busy / wall_ms,
+                  "port_kernels_device_ms": port_kernel_ms(kernels),
+                  "card": smi})
+            check(seen == want, f"{feed}-fed epoch (stem {stem}) launched "
+                                f"{seen}")
+            if feed == "store":
+                store_launches = {k: store_launches[k] + seen[k]
+                                  for k in seen}
+        rel = abs(first["store"] - first["folder"]) / abs(first["folder"])
+        emit({"phase": "folder_data", "what": "first_loss",
+              "stem_kernel": stem, "store_vs_folder_rel": rel,
+              "limit": FOLDER_LOSS_REL, "card": smi})
+        check(rel <= FOLDER_LOSS_REL, f"store-fed first loss {rel}")
+    return store_launches
+
+
+def drone_tiles(device, smi, root, shape, tile, batch, seed=SEED):
+    """Two drone frames and their car masks as DNGs, read by
+    FolderSegmentation, cut into tiles with ``split_img``, the tiles with
+    a car kept (``keeps_tile``, as ``create_tiles_dataset`` keeps them),
+    in memory; a segmentation store of them, a gather epoch against the
+    in-memory tiles, then 2 U-Net++ train steps fed by the store."""
+    t0 = time.perf_counter()
+    img_dir, mask_dir = (os.path.join(root, d) for d in ("frames", "masks"))
+    os.makedirs(img_dir)
+    os.makedirs(mask_dir)
+    rng = np.random.default_rng((seed,) + shape)
+    for i, frame in enumerate(drone_frames(2, shape, seed).numpy()):
+        write_dng(os.path.join(img_dir, f"f{i:02d}.dng"),
+                  np.round(frame * 65535).astype(np.uint16))
+        mask = np.zeros(shape, np.uint16)
+        for _ in range(DRONE_CARS):
+            h, w = rng.integers(16, 64, 2)
+            y0 = rng.integers(0, shape[0] - h)
+            x0 = rng.integers(0, shape[1] - w)
+            mask[y0:y0 + h, x0:x0 + w] = 1
+        write_dng(os.path.join(mask_dir, f"f{i:02d}_mask.dng"), mask)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = FolderSegmentation(img_dir, mask_dir)
+    X, Y, n_tiles = [], [], 0
+    for img, mask in (frames[i] for i in range(len(frames))):
+        tiles = split_img(img, ROIs=(tile, tile), step=(tile, tile))
+        mtiles = split_img(mask, ROIs=(tile, tile), step=(tile, tile))
+        n_tiles += len(tiles)
+        for t, mt in zip(tiles, mtiles):
+            if keeps_tile(mt):
+                X.append(t)
+                Y.append(mt)
+    tile_s = time.perf_counter() - t0
+    check(len(X) >= 2 * batch, f"{len(X)} drone tiles kept")
+    tiles = ArrayDataset(np.stack(X), np.stack(Y))
+    path = os.path.join(root, "drone.r2l")
+    t0 = time.perf_counter()
+    build_store(tiles, path)
+    build_s = time.perf_counter() - t0
+    store = TileStore(path)
+    try:
+        check(store.task == "segmentation", f"drone store {store.task}")
+        got, gather_s = timed_epoch(Loader(store, batch, shuffle=True,
+                                           seed=SEED))
+        check(same_batches(got, list(Loader(tiles, batch, shuffle=True,
+                                            seed=SEED))),
+              "drone store batches equal the in-memory tiles")
+        proc, net = seg_modules(device)
+        _, _, state, step = train_copy(
+            TrainConfig(task="segmentation", lr=TRAIN_LR), proc, net)
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(state, torch.as_tensor(raw, device=device),
+                             torch.as_tensor(y, device=device))["loss"])
+                  for raw, y in got[:2]]
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        seen = counts()
+    finally:
+        store.close()
+    emit({"phase": "folder_data", "what": "drone_tiles",
+          "frames": [2, *shape], "tile": tile, "tiles": n_tiles,
+          "kept": len(X), "write_dng_s": write_s,
+          "read_and_tile_s": tile_s, "build_store_s": build_s,
+          "store_bytes": os.path.getsize(path), "gather_epoch_s": gather_s,
+          "gather_imgs_per_s": len(got) * batch / gather_s if got else None,
+          "seg_steps": 2, "seg_batch": batch, "seg_steps_s": steps_s,
+          "seg_losses": losses, "launches": seen, "card": smi})
+    check(all(np.isfinite(losses)), f"U-Net++ losses {losses}")
+    check(seen == launches(fwd_train=2, bwd_res=2),
+          f"store-fed U-Net++ steps launched {seen}")
+
+
+def phase_folder_data(device, smi, n=FOLDER_N, size=SIZE,
+                      batch=SERVE_BATCH, big=BIG_BATCH, drone=DRONE_FRAME,
+                      tile=DRONE_TILE):
+    """The folder datasets and the tile path, with neither PIL nor pandas:
+    (a) ``n`` seeded ``size``-square 16-bit mosaics written as DNGs,
+    labelled in FOLDER_CLASSES classes, read by FolderClassification, one
+    per-item-decode epoch through Loader; (b) tile stores of that folder,
+    float32 and uint16 (the counts), their build seconds and bytes, and a
+    gather epoch at ``batch`` and ``big``: the float32 store's batches
+    bitwise the folder loader's in the same shuffled order, the uint16
+    store's within STORE_U16_ULPS, a Subset of the store on k_fold's train
+    indices bitwise the same Subset of the folder; (c) ``folder_train``
+    from the float32 store and from the folder; (d) ``drone_tiles``.
+    Returns the store-fed train epochs' launches."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_dngs(os.path.join(root, "dngs"), n, SEED, size)
+        labels = np.random.default_rng((SEED, n)).integers(
+            0, FOLDER_CLASSES, n).tolist()
+        write_s = time.perf_counter() - t0
+        folder = FolderClassification(paths, labels)
+        counts16 = FolderClassification(paths, labels, bits=1)  # raw counts
+        decoded, decode_s = timed_epoch(Loader(folder, batch, shuffle=True,
+                                               seed=SEED))
+        # where a decode's time goes: the file's bytes, then the parse
+        t0 = time.perf_counter()
+        for path in paths:
+            with open(path, "rb") as fh:
+                fh.read()
+        bytes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for path in paths:
+            read_dng(path)
+        parse_s = time.perf_counter() - t0
+        emit({"phase": "folder_data", "what": "decode_epoch", "images": n,
+              "size": size, "batch": batch, "write_dng_s": write_s,
+              "epoch_s": decode_s,
+              "imgs_per_s": len(decoded) * batch / decode_s,
+              "read_bytes_s": bytes_s, "read_dng_s": parse_s, "card": smi})
+        stores, epochs = {}, {}
+        for name, ds, dtype in (("float32", folder, np.float32),
+                                ("uint16", counts16, np.uint16)):
+            path = os.path.join(root, f"{name}.r2l")
+            t0 = time.perf_counter()
+            build_store(ds, path, dtype=dtype)
+            build_s = time.perf_counter() - t0
+            stores[name] = TileStore(path)
+            row = {"phase": "folder_data", "what": "store", "dtype": name,
+                   "build_s": build_s, "bytes": os.path.getsize(path)}
+            # the first epoch after opening faults the mapping in
+            for key, b in (("first_epoch", batch), ("epoch", batch),
+                           ("epoch", big)):
+                got, s = timed_epoch(Loader(stores[name], b, shuffle=True,
+                                            seed=SEED))
+                row[f"{key}_s_b{b}"] = s
+                row[f"{key}_imgs_per_s_b{b}"] = len(got) * b / s
+                if key == "first_epoch":
+                    epochs[name] = got
+                elif b == big:  # the same permutation, in fewer batches
+                    flat = np.concatenate([x for x, _ in epochs[name]])
+                    check(np.array_equal(np.concatenate(
+                        [x for x, _ in got]), flat[:len(got) * b]),
+                        f"{name} store at B = {b}: the order of B = {batch}")
+            emit(dict(row, card=smi))
+        ulps = max(int(np.max(np.abs(x.view(np.int32).astype(np.int64)
+                                     - w.view(np.int32))))
+                   for (x, _), (w, _) in zip(epochs["uint16"], decoded))
+        exact = same_batches(epochs["float32"], decoded)
+        labels_equal = all(np.array_equal(y, w) for (_, y), (_, w) in
+                           zip(epochs["uint16"], decoded))
+        emit({"phase": "folder_data", "what": "store_vs_folder",
+              "float32_bitwise": exact, "uint16_max_ulps": ulps,
+              "uint16_labels_equal": labels_equal, "card": smi})
+        check(exact, "float32 store batches bitwise the folder's")
+        check(labels_equal and ulps <= STORE_U16_ULPS,
+              f"uint16 store within {STORE_U16_ULPS} ulp: {ulps}")
+        train_idx = k_fold(folder, n_splits=1, seed=SEED, train_size=0.8)[0][0]
+        sub_store, sub_folder = (
+            list(Loader(Subset(ds, train_idx), batch, shuffle=True,
+                        seed=SEED)) for ds in (stores["float32"], folder))
+        exact = len(sub_store) > 0 and same_batches(sub_store, sub_folder)
+        emit({"phase": "folder_data", "what": "subset",
+              "indices": len(train_idx), "bitwise_equal": exact,
+              "card": smi})
+        check(exact, "Subset(store) batches bitwise Subset(folder)'s")
+        del decoded, epochs, got, sub_store, sub_folder
+        stores["uint16"].close()
+        try:
+            found = folder_train(device, smi, {"store": stores["float32"],
+                                               "folder": folder}, batch)
+        finally:
+            stores["float32"].close()
+        drone_tiles(device, smi, os.path.join(root, "drone"), drone, tile,
+                    batch)
+    return found
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -4641,6 +4949,10 @@ def main():
     lap("data_parallel")
     phase_parallel_helpers(device)
     lap("parallel_helpers")
+    # the folder datasets and the tile path: the store-fed train step is
+    # rows 2 and 3's path, and with the stem flag the stem kernels'
+    folder_launches = phase_folder_data(device, smi)
+    lap("folder_data")
     # the bfloat16 CLI run, whose --profile opens a trace of its own
     phase_bf16_cli(device)
     lap("bf16_cli")
@@ -4664,6 +4976,8 @@ def main():
             # launches of the segmentation path: its 3 train steps and
             # the 2 batches of its serving run
             "segmentation_launches": seg_launches[name],
+            # launches of the store-fed train epochs (stem flag off and on)
+            "folder_data_launches": folder_launches.get(name, 0),
             "max_abs_err": max_err[name],
             # ms: CUDA events around the wrapper call (parameter packing,
             # and for the backward the partials' sum and unpacking,

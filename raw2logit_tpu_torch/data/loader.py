@@ -2,9 +2,13 @@
 ``raw2logit_tpu/data/loader.py``).
 
 The ISP runs on the device inside the train step, so the loader only
-assembles (raw, label) numpy batches from an indexable dataset and
-overlaps the next batch's assembly with the current step on one thread.
-Batches stay on the host; the train loop moves them to the device.
+assembles (raw, label) numpy batches, from an indexable dataset or a
+tile store (``data/tilestore.py``), and overlaps the next batch's
+assembly with the current step on one thread. Batches stay on the host;
+the train loop moves them to the device. The JAX loader's ``mesh``
+argument, which places a batch sharded over the devices, has no
+counterpart: the port is data-parallel with one process per rank
+(``parallel/``), each taking its rows of a global batch.
 """
 
 import queue
@@ -30,11 +34,23 @@ class ArrayDataset:
         return self.X[i], self.Y[i]
 
 
+def make_dataloader(dataset, batch_size, shuffle=True, **kw):
+    """A Loader over an ``(X, Y)`` array pair, (N, H, W[, C]) as given.
+    The ragged last batch is kept unless ``drop_last=True`` (Loader alone
+    ties its default to ``shuffle``); other keyword arguments (seed,
+    prefetch) pass through to Loader."""
+    X, Y = dataset
+    kw.setdefault("drop_last", False)
+    return Loader(ArrayDataset(X, Y), batch_size, shuffle=shuffle, **kw)
+
+
 class Loader:
     """Iterate (images, labels) numpy batches over a dataset.
 
     Args:
-        dataset: indexable (img, label) source.
+        dataset: indexable (img, label) source, or a tile store (anything
+            with a ``gather(indices)`` method, a ``Subset`` of a store
+            among them), read a batch at a time.
         batch_size: items per batch.
         shuffle: reshuffle each epoch, in the order
             ``np.random.default_rng((seed, epoch)).permutation``.
@@ -68,6 +84,10 @@ class Loader:
         return np.random.default_rng((self.seed, self._epoch)).permutation(n)
 
     def _assemble(self, indices):
+        if hasattr(self.dataset, "gather"):
+            # the store's threaded gather; the store serialises it against
+            # its close (TileStore._lock)
+            return self.dataset.gather(indices)
         items = [self.dataset[int(i)] for i in indices]
         xs = np.stack([np.asarray(x, np.float32) for x, _ in items])
         ys = np.asarray([y for _, y in items])

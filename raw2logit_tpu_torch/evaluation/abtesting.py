@@ -65,10 +65,13 @@ class ABTesting:
     """Evaluate trained checkpoints across processing pipelines.
 
     Args:
-        dataset_name: a synthetic dataset name (the folder datasets are not
-            ported yet: ``get_dataset`` raises on their names).
+        dataset_name: a ``get_dataset`` name: a folder dataset (Microscopy,
+            DroneSegmentation, ...) or a synthetic one.
         batch_size: images per batch of a cell program and of the
             precompute.
+        data_root: where a folder dataset lives (the synthetic ones take
+            none). The JAX package takes it and reads ``data`` whatever
+            it says; the port reads it.
         severity: the corruption severity where a call gives none.
         image_size: the mosaics' side (kept for the JAX package's
             signature; torch modules take any size).
@@ -78,12 +81,14 @@ class ABTesting:
         dataset_kwargs: passed to ``get_dataset`` (n, h, w, seed).
     """
 
-    def __init__(self, dataset_name, batch_size=32, severity=1,
-                 image_size=256, precompute_rgb=True, device=None,
-                 **dataset_kwargs):
+    def __init__(self, dataset_name, batch_size=32, data_root="data",
+                 severity=1, image_size=256, precompute_rgb=True,
+                 device=None, **dataset_kwargs):
         self.dataset_name = dataset_name
         self.image_size = image_size
         self.device = resolve_device(device)
+        if not dataset_name.startswith("Synthetic"):
+            dataset_kwargs["data_root"] = data_root
         self.dataset = get_dataset(dataset_name, **dataset_kwargs)
         self.task = self.dataset.task
         self.batch_size = batch_size

@@ -1,5 +1,6 @@
 """The A/B and corruption evaluation CLI (port of the JAX package's
-``figures/ABtesting.py``, the same modes and flags, and ``--device``):
+``figures/ABtesting.py``, the same modes and flags, and ``--device`` and
+``--data_root``):
 
     python -m raw2logit_tpu_torch.figures.ABtesting --mode ABMakeTable \
         --dataset_name SyntheticMicroscopy --checkpoints_json ckpts.json \
@@ -40,7 +41,12 @@ def build_parser():
                    choices=["ABMakeTable", "ABShowTable", "ABShowImages",
                             "ABShowAllImages", "CMakeTable", "CShowTable",
                             "CShowImages", "CShowAllImages"])
-    p.add_argument("--dataset_name", default="Microscopy")
+    p.add_argument("--dataset_name", default="Microscopy",
+                   help="a folder dataset (Microscopy, DroneSegmentation, "
+                        "Drone, their aliases) under --data_root, or "
+                        "SyntheticMicroscopy / SyntheticDrone")
+    p.add_argument("--data_root", default="data",
+                   help="the folder datasets' root")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--checkpoints_json", default=None,
                    help="json mapping train-pipeline name -> checkpoint "
@@ -129,6 +135,7 @@ def main(argv=None):
 
     device = resolve_device(None if args.device == "cuda" else args.device)
     ab = ABTesting(args.dataset_name, batch_size=args.batch_size,
+                   data_root=args.data_root,
                    severity=args.severity, device=device)
     valid_indices = _load_valid_indices(args, ab)
 

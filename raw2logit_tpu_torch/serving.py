@@ -53,7 +53,10 @@ class Predictor:
         ``processing_mode='parametrized'`` loads the run's processor file
         into ``ParametrizedProcessing`` (with the fused kernels unless
         ``use_kernel=False``); ``'static'`` rebuilds the static pipeline
-        and the normalisation from the run's ``sp_*`` arguments. A
+        and the normalisation from the run's ``sp_*`` arguments. The
+        dataset (a folder dataset, or a synthetic one) gives the task,
+        the classes and the camera; ``dataset_kwargs`` go to
+        ``get_dataset`` (``data_root`` and ``I_ratio`` for a folder). A
         segmentation dataset serves sigmoid masks from the U-Net++ that
         the JAX package builds here: a ``resnet34`` encoder, whatever
         ``network`` says. What the JAX package cannot serve raises (a run
@@ -182,6 +185,8 @@ def main(argv=None):
     p.add_argument("--run_name", required=True)
     p.add_argument("--image_dir", required=True)
     p.add_argument("--dataset", default="Microscopy")
+    p.add_argument("--data_root", default="data",
+                   help="the folder datasets' root")
     p.add_argument("--network", default="resnet18")
     p.add_argument("--processing_mode", default="parametrized")
     p.add_argument("--batch_size", type=int, default=32)
@@ -190,10 +195,12 @@ def main(argv=None):
                    help="where to serve: cuda (the default; raises without "
                         "CUDA) or cpu")
     args = p.parse_args(argv)
+    folder = ({} if args.dataset.startswith("Synthetic")
+              else {"data_root": args.data_root})
     pred = Predictor.from_run(
         args.experiment_name, args.run_name, dataset_name=args.dataset,
         network=args.network, processing_mode=args.processing_mode,
-        device=None if args.device == "cuda" else args.device)
+        device=None if args.device == "cuda" else args.device, **folder)
     out = pred.predict_dir(args.image_dir, batch_size=args.batch_size,
                            out_path=args.out)
     print(f"predictions -> {out}")

@@ -1,4 +1,4 @@
-"""Local run store (port of the local part of
+"""The run store and its MLflow mirror (port of
 ``raw2logit_tpu/tracking/run.py``).
 
 Runs live under ``<root>/<experiment>/<run_name>/`` with the JAX
@@ -6,9 +6,14 @@ package's layout: ``params.json``, ``metrics.jsonl`` (one JSON record per
 ``log_metrics``), ``state_dict.json``, and artifact directories such as
 ``checkpoints/``. A child run (one per fold) is a directory inside its
 parent's. ``find_run``, ``list_runs`` and ``get_model_by_name`` look
-recorded runs up by name. Mirroring to an MLflow server
-(``tracking_uri``) comes with the tracking slice of the port (ROADMAP
-Queue 1 item 11) and raises here.
+recorded runs up by name.
+
+With a tracking URI (``tracking_uri``, else ``MLFLOW_TRACKING_URI``) a
+run is also mirrored to an MLflow tracking server: through the ``mlflow``
+package where it is installed, otherwise, for an http(s) URI, through
+the server's REST API (``tracking/mlflow_rest.py``), otherwise not at
+all. The local store is always written; a mirror that fails never stops
+training.
 """
 
 import json
@@ -46,11 +51,6 @@ def run_dir(experiment_name, *run_names, root="results/runs"):
 class Run:
     def __init__(self, experiment_name, run_name, root="results/runs",
                  parent=None, tracking_uri=None):
-        if tracking_uri:
-            raise NotImplementedError(
-                "mirroring runs to an MLflow server (tracking_uri) comes with "
-                "the tracking slice of the port (ROADMAP Queue 1 item 11); "
-                "runs are recorded locally")
         self.experiment_name = experiment_name
         self.run_name = run_name
         if parent is not None:
@@ -59,6 +59,52 @@ class Run:
             self.dir = run_dir(experiment_name, run_name, root=root)
         os.makedirs(self.dir, exist_ok=True)
         self._metrics_fh = None  # opened on the first log_metrics
+        self._tracking_uri = (tracking_uri
+                              or os.environ.get("MLFLOW_TRACKING_URI"))
+        self._mlflow = self._mlflow_run = None
+        if self._tracking_uri:
+            self._start_mirror(parent)
+
+    def _start_mirror(self, parent):
+        """Mirror to ``self._tracking_uri``: the mlflow package, else REST
+        for an http(s) URI, else local only; a mirror that cannot start
+        leaves the run local."""
+        uri = self._tracking_uri
+        try:
+            import mlflow
+        except ImportError:
+            mlflow = None
+        try:
+            if mlflow is not None:
+                mlflow.set_tracking_uri(uri)
+                mlflow.set_experiment(self.experiment_name)
+                self._mlflow_run = mlflow.start_run(
+                    run_name=self.run_name, nested=parent is not None)
+                self._mlflow = mlflow
+            elif uri.startswith(("http://", "https://")):
+                from raw2logit_tpu_torch.tracking.mlflow_rest import \
+                    RestMirror
+                parent_mirror = parent._mlflow if parent is not None else None
+                self._mlflow = self._mlflow_run = RestMirror.start(
+                    uri, self.experiment_name, self.run_name,
+                    parent_run_id=getattr(parent_mirror, "run_id", None))
+            else:
+                print("mlflow not installed — tracking locally only "
+                      f"(requested URI {uri})")
+        except Exception as e:  # noqa: BLE001 — never block training
+            kind = "mlflow REST mirror" if mlflow is None else "mlflow mirror"
+            print(f"{kind} unavailable ({e}); tracking locally")
+            self._mlflow = self._mlflow_run = None
+
+    def _mirror(self, call, *args, **kwargs):
+        """``call`` on the mirror, if any; its failures are printed and
+        do not reach the caller."""
+        if self._mlflow is None:
+            return
+        try:
+            getattr(self._mlflow, call)(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 — never block training
+            print(f"mlflow mirror: {call} failed ({e})")
 
     def log_params(self, params):
         """Merge ``params`` into ``params.json``."""
@@ -70,6 +116,8 @@ class Run:
         merged.update(_to_jsonable(params))
         with open(path, "w") as fh:
             json.dump(merged, fh, indent=2, default=str)
+        self._mirror("log_params",
+                     {k: str(v)[:250] for k, v in merged.items()})
 
     def log_metrics(self, metrics, step=None):
         """Append one record {time, step, **metrics} to ``metrics.jsonl``."""
@@ -80,6 +128,11 @@ class Run:
                 os.path.join(self.dir, "metrics.jsonl"), "a")
         self._metrics_fh.write(json.dumps(rec, default=str) + "\n")
         self._metrics_fh.flush()
+        self._mirror("log_metrics",
+                     {k: float(v) for k, v in metrics.items()
+                      if isinstance(v, (int, float, np.floating,
+                                        np.integer))},
+                     step=step)
 
     def log_state_dict(self, state_dict, name="state_dict.json"):
         with open(os.path.join(self.dir, name), "w") as fh:
@@ -91,13 +144,18 @@ class Run:
         return d
 
     def child(self, run_name):
-        """A nested run (one per fold), in a directory of this run's."""
-        return Run(self.experiment_name, run_name, parent=self)
+        """A nested run (one per fold), in a directory of this run's,
+        mirrored to this run's tracking URI."""
+        return Run(self.experiment_name, run_name, parent=self,
+                   tracking_uri=self._tracking_uri)
 
     def close(self):
         if self._metrics_fh is not None:
             self._metrics_fh.close()
             self._metrics_fh = None
+        if self._mlflow_run is not None:
+            self._mirror("end_run")
+            self._mlflow_run = None
 
     def read_metrics(self):
         path = os.path.join(self.dir, "metrics.jsonl")

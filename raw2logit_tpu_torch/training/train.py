@@ -33,9 +33,12 @@ gloo with ``--device cpu``), rank r trains on rows [r B/N, (r + 1) B/N)
 of every global batch of B, the steps compute the single-device step on
 the global batch, and only rank 0 writes the run store, the checkpoints
 and the tracked images. ``--n_devices`` defaults to the group's size.
-The options the port leaves out (``--staged_step``, ``--fuse_opt``,
-``--tracking_uri``) raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item.
+``--dataset`` takes the folder datasets (Microscopy, the Drone sets,
+under ``data/`` of the working directory, at exposure ``--I_ratio``) and
+the synthetic ones; ``--tracking_uri`` (or ``MLFLOW_TRACKING_URI``)
+mirrors the run to an MLflow server. The options the port leaves out
+(``--staged_step``, ``--fuse_opt``, TPU compile-budget workarounds) raise
+``NotImplementedError``.
 """
 
 import argparse
@@ -76,8 +79,9 @@ def build_parser():
     its TPU extras), and ``--device``."""
     p = argparse.ArgumentParser(description="classification_task")
     p.add_argument("--tracking_uri", type=str, default=None,
-                   help="MLflow server URI (not ported yet: raises; runs "
-                        "are always recorded under results/runs)")
+                   help="MLflow server URI to mirror the run to (else "
+                        "MLFLOW_TRACKING_URI); runs are always recorded "
+                        "under results/runs")
     p.add_argument("--processor_uri", type=str, default=None,
                    help="processor state-dict file to load the processor "
                         "from (a run's checkpoints/processor.pt)")
@@ -200,8 +204,7 @@ def build_parser():
 
 def _refuse_unported(args):
     """Raise NotImplementedError for the options the port leaves out,
-    naming the ROADMAP Queue 1 item (``--tracking_uri`` raises in
-    ``tracking.Run``)."""
+    naming the ROADMAP Queue 1 item."""
     if args.staged_step or args.fuse_opt:
         raise NotImplementedError(
             "--staged_step and --fuse_opt select TPU compile-budget "
@@ -439,7 +442,8 @@ def run_train(args):
     _, size = distributed.world()
     primary = distributed.is_primary()
     training_mode = "adversarial" if args.adv_training else "default"
-    dataset = get_dataset(args.dataset)
+    # the synthetic sets take no exposure: get_dataset drops it for them
+    dataset = get_dataset(args.dataset, I_ratio=args.I_ratio)
     print(f"dataset: {type(dataset).__name__}[{len(dataset)}]")
     print(f"task: {dataset.task}")
     print(f"mode: {training_mode} training")

@@ -291,9 +291,18 @@ def test_the_port_renders_jax_s_table(ab_tables, tmp_path):
     assert os.path.getsize(out) > 0
 
 
-def test_folder_dataset_and_missing_cuda_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        pab.ABTesting("Microscopy", device="cpu")
+def test_folder_dataset_and_missing_cuda_raise(tmp_path, monkeypatch):
+    """A folder dataset whose folder is missing goes to its download,
+    which raises where the mirror cannot be reached (stubbed here: the
+    tests never reach the network); the folder datasets themselves:
+    tests/test_torch_folder_data.py."""
+    from raw2logit_tpu_torch.data import download
+
+    def offline(data_root="data", force_download=False):
+        raise FileNotFoundError(f"no mirror for {data_root}")
+    monkeypatch.setattr(download, "download_microscopy_dataset", offline)
+    with pytest.raises(FileNotFoundError, match="no mirror"):
+        pab.ABTesting("Microscopy", data_root=str(tmp_path), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pab.ABTesting("SyntheticMicroscopy", **DATA)

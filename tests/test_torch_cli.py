@@ -224,8 +224,10 @@ def test_run_store(tmp_path):
         assert json.load(fh) == {"train_indices": [0, 1, 2]}
     assert os.path.isdir(run.artifact_dir("checkpoints", "x"))
     run.close()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Run("e", "r", root=str(tmp_path), tracking_uri="http://localhost:1")
+    # an unreachable tracking server leaves the run local, it does not raise
+    local = Run("e", "r", root=str(tmp_path), tracking_uri="http://localhost:1")
+    assert local._mlflow is None
+    local.close()
 
 
 # --- the CLI --------------------------------------------------------------
@@ -290,7 +292,7 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--tracking_uri", "http://127.0.0.1:5000"], "item 11"),
+    (["--fuse_opt"], "item 3"),
     (["--staged_step"], "item 3"),
 ])
 def test_cli_refuses_unported_options(flags, match, tmp_path, monkeypatch):

@@ -137,8 +137,8 @@ def test_get_dataset_synthetic_names():
     np.testing.assert_array_equal(
         seg[1][1], jdatasets.get_dataset("SyntheticDrone", n=2, h=16,
                                          w=16)[1][1])
-    with pytest.raises(ValueError):
-        datasets.get_dataset("Microscopy")
+    with pytest.raises(ValueError):  # the folder names: test_torch_folder_data
+        datasets.get_dataset("NoSuchDataset")
 
 
 @pytest.mark.parametrize("entry", ["processing", "resnet", "predictor"])
