@@ -97,6 +97,18 @@ line):
    eval call (logits float32), the B=32 segmentation and adversarial
    steps; the flag-on step and eval call are the bfloat16 forms' main
    path (each launched, no float32 form).
+13b. staged: ``make_staged_train_step`` (the same update in explicit
+   stages, each calling the kernels' wrappers), with and without
+   fuse_opt, at full ResNet-18 width, float32, B=32 and B=256, stem flag
+   off and on, against the one step from identical weights (phase 6's
+   gates, the classifier leaf by leaf), its ISP gradients against the
+   float64 plain backward on the cotangent its ISP-backward stage
+   received; one adversarial SSIM staged step at B=32 (phase 8's gates);
+   one bfloat16 staged step with the stem flag at B=256 (phase 13a's
+   contract); each staged step's launches (kernels 2 and 3 once, kernel 4
+   never; kernel 1 and the SSIM kernel once in adversarial, each stem form
+   once with the flag); then CUDA-event ms and device idle share of the
+   one, staged and staged fuse_opt steps at B=32 and B=256.
 14. times: CUDA-event times of each kernel, its plain version, its bound
    and, for the stem's convolutions and pool backward, the nearest library
    call (``LIBRARY_CALLS``), of
@@ -216,8 +228,8 @@ line):
    segmentation store, a gather epoch, 2 U-Net++ steps at B = 32 fed by
    it.
 33. the ``kernels`` line (with each kernel's launches on the segmentation
-   path and on the store-fed train epochs; the bfloat16 forms as
-   ``<kernel>_bf16``), then the ``ok`` line.
+   path, on the store-fed train epochs and on the staged steps of 13b;
+   the bfloat16 forms as ``<kernel>_bf16``), then the ``ok`` line.
 """
 
 import contextlib
@@ -278,6 +290,7 @@ from raw2logit_tpu_torch.parallel import distributed
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training.checkpoint import save_module
 from raw2logit_tpu_torch.training import (TrainConfig, create_train_state,
+                                          make_staged_train_step,
                                           make_train_step)
 
 SEED = 0
@@ -2104,19 +2117,25 @@ def phase_times(device, kind, pred, trains, advs, pred_stem, trains_stem):
 # PROFILE_ATTEMPTS times in all.
 PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
 PROFILE_PRIMER, PROFILE_WINDOW = "spin_kernel", "r2l_measured_call"
+# ``record_function`` ranges, whose device-side records span the kernels
+# launched inside them (counted as busy, they would read the gaps between
+# those kernels as busy too): the measured window and the staged step's
+# stages (``make_staged_train_step``'s ``step.programs``)
+PROFILE_RANGES = (PROFILE_WINDOW, "isp_fwd", "clf_grad", "clf_grad_bn",
+                  "aux_grad", "isp_bwd", "opt_apply")
 
 
 def measured_records(prof):
     """(device events of the measured calls, their window's start in the
     trace's us): the device records that start in the PROFILE_WINDOW
-    range, primers and the range's own device-side record left out."""
+    range, primers and the ranges' own device-side records left out."""
     from torch.autograd import DeviceType
     events = prof.events()
     starts = [e.time_range.start for e in events
               if e.device_type != DeviceType.CUDA and e.name == PROFILE_WINDOW]
     t0 = (min(starts) if starts else float("-inf")) - PROFILE_SETTLE_S * 5e5
     return [e for e in events if e.device_type == DeviceType.CUDA
-            and PROFILE_PRIMER not in e.name and e.name != PROFILE_WINDOW
+            and PROFILE_PRIMER not in e.name and e.name not in PROFILE_RANGES
             and e.time_range.start >= t0], t0
 
 
@@ -4352,6 +4371,374 @@ def phase_bf16_steps(device, batch=BIG_BATCH, small=SERVE_BATCH):
     return main
 
 
+# --- the staged train step -------------------------------------------------
+
+# The staged step against the one step from identical weights: loss,
+# running statistics and ISP gradients (per parameter) at phase 6's gates
+# (LOSS_TOL, STATS_TOL, BWD_PARAM); the classifier's gradients leaf by
+# leaf within CLF_GRAD_TOL of the leaf's largest |gradient|, or of the
+# whole classifier's largest times STAGED_LEAF_FLOOR where that is larger
+# (the as-built ResNet's zero-scale batch norms leave leaves whose
+# gradients are rounding noise). Timed: the mean of STAGED_ITERS calls
+# after 2 warm-ups, in two rounds (one, staged, fused; then fused,
+# staged, one), and a profile of 3 calls each.
+STAGED_LEAF_FLOOR, STAGED_ITERS = 1e-3, 10
+STAGED_KINDS = ("one", "staged", "fused")
+# The update itself. Each step's first Adam step against the float64 Adam
+# of that step's own gradient g: each parameter that trains against
+# p - lr * g / (|g| + eps) within ADAM_TOL * lr plus two float32 ulps,
+# its moments against (1 - b1) g and (1 - b2) g^2 within four ulps; the
+# parameters that do not train unmoved. Each staged form's parameters
+# against the one step's where the one step's gradient g is above
+# ADAM_G_FLOOR and above twice the two gradients' difference: both Adams
+# then move the same way, lr * g / (|g| + eps) differing by at most
+# lr * eps / |g| <= 1e-2 lr, held within ADAM_NEAR_TOL * lr plus two
+# ulps. (Elsewhere a sign flip of a gradient that is rounding noise moves
+# the two 2 lr apart, which says nothing of the update.)
+ADAM_TOL, ADAM_NEAR_TOL, ADAM_G_FLOOR, ADAM_EPS = 1e-4, 2e-2, 1e-6, 1e-8
+
+
+def staged_copy(cfg, proc, clf, kind, stem=False):
+    """Deep copies of the modules, their state and the step of ``kind``:
+    the one step, the staged step, or the staged step with fuse_opt (a
+    split state)."""
+    p, c = copy.deepcopy(proc), copy.deepcopy(clf)
+    c.stem_kernel = stem
+    state = create_train_state(cfg, p, c, split_opt=kind == "fused")
+    step = (make_train_step(cfg, p, c) if kind == "one" else
+            make_staged_train_step(cfg, p, c, fuse_opt=kind == "fused"))
+    return p, c, state, step
+
+
+def stage4_cotangent(step):
+    """A dict that each call of the staged ``step`` fills with the
+    cotangent its ``isp_bwd`` stage receives (under "d"): that of the
+    output BN's input with the train-mode BN in ``clf_grad_bn``, else of
+    its output."""
+    seen, isp_bwd = {}, step.programs["isp_bwd"]
+
+    def spy(state, h, raw):
+        seen["d"] = h.d
+        return isp_bwd(state, h, raw)
+    step.programs["isp_bwd"] = spy
+    return seen
+
+
+def leaf_agreement(got, want):
+    """max over the classifier's leaves of |got - want| over the larger of
+    the leaf's max |want| and STAGED_LEAF_FLOOR times the classifier's."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max((max_rel(got[n].double(), want[n].double(),
+                        STAGED_LEAF_FLOOR * scale), n) for n in want)
+
+
+def named_params(p, c):
+    """The ISP's and the classifier's parameters by "isp." / "clf."
+    name."""
+    return {f"{m}.{n}": t for m, mod in (("isp", p), ("clf", c))
+            for n, t in mod.named_parameters()}
+
+
+def adam_moments(state):
+    """{parameter: its Adam state} over ``state``'s optimizers (the joint
+    one, or the sides of a split pair)."""
+    opts = (state.optimizer if isinstance(state.optimizer, tuple)
+            else (state.optimizer,))
+    return {q: o.state[q] for o in opts if o is not None
+            for group in o.param_groups for q in group["params"]
+            if q in o.state}
+
+
+def adam_first_step(named, before, state, lr):
+    """The first Adam step of ``state`` held to the float64 Adam of each
+    parameter's own gradient: (worst error over its bound, 1 passes;
+    that parameter or moment; the parameters that train without one Adam
+    step, or moved without training)."""
+    moments, worst, wrong = adam_moments(state), (0.0, ""), []
+    for n, t in named.items():
+        if not t.requires_grad:
+            if not torch.equal(t.detach(), before[n]):
+                wrong.append(n)
+            continue
+        st = moments.get(t)
+        if st is None or float(st["step"]) != 1:
+            wrong.append(n)
+            continue
+        g, ulp = t.grad.double(), torch.finfo(t.dtype).eps
+        want = before[n].double() - lr * g / (g.abs() + ADAM_EPS)
+        for what, got, w, bound in (
+                ("", t.detach(), want, ADAM_TOL * lr + 2 * ulp * want.abs()),
+                (" exp_avg", st["exp_avg"], 0.1 * g, 4 * ulp * 0.1 * g.abs()),
+                (" exp_avg_sq", st["exp_avg_sq"], 1e-3 * g * g,
+                 4 * ulp * 1e-3 * g * g)):
+            err = float(((got.double() - w).abs() / (bound + 1e-30)).max())
+            worst = max(worst, (err, n + what))
+    return worst[0], worst[1], wrong
+
+
+def update_agreement(after, after_one, grads, grads_one, lr):
+    """Each staged form's updated parameters against the one step's where
+    both Adams move the same way (see ADAM_NEAR_TOL): (worst error over
+    its bound, 1 passes; the share of trained elements compared)."""
+    worst, n_cmp, n_all = 0.0, 0, 0
+    for n, w in after_one.items():
+        if grads_one[n] is None:
+            continue
+        g1 = grads_one[n].double()
+        near = ((g1.abs() > ADAM_G_FLOOR)
+                & (g1.abs() > 2 * (grads[n].double() - g1).abs()))
+        ulp = torch.finfo(w.dtype).eps
+        ratio = ((after[n].double() - w.double()).abs()
+                 / (ADAM_NEAR_TOL * lr + 2 * ulp * w.double().abs()))[near]
+        if ratio.numel():
+            worst = max(worst, float(ratio.max()))
+        n_cmp, n_all = n_cmp + int(near.sum()), n_all + near.numel()
+    return worst, n_cmp / max(n_all, 1)
+
+
+def staged_runs(cfg, proc, clf, raw, y, kinds, stem):
+    """One step of each of ``kinds`` (STAGED_KINDS) from identical
+    weights: per kind (grads_and_stats and loss, launches, stage 4's
+    cotangent or None, the updated parameters, their gradients, the first
+    Adam step's check), each run's launches read after it alone."""
+    runs = {}
+    for kind in kinds:
+        p, c, state, step = staged_copy(cfg, proc, clf, kind, stem)
+        named = named_params(p, c)
+        before = {n: t.detach().clone() for n, t in named.items()}
+        seen = stage4_cotangent(step) if kind != "one" else None
+        torch.cuda.synchronize()
+        reset_counts()
+        loss = float(step(state, raw, y)["loss"])
+        torch.cuda.synchronize()
+        got = counts()
+        runs[kind] = ((grads_and_stats(p, c), loss), got, seen,
+                      {n: t.detach().clone() for n, t in named.items()},
+                      {n: t.grad for n, t in named.items()},
+                      adam_first_step(named, before, state, cfg.lr))
+        del p, c, state, step, named, before
+    return runs
+
+
+def update_of(runs, kind, lr):
+    """The update of ``kind``'s run (``staged_runs``), to emit: its first
+    Adam step and, for a staged form, its parameters against the one
+    step's."""
+    adam, adam_at, wrong = runs[kind][5]
+    out = {"adam_first_step_err": [adam_at, adam], "adam_wrong": wrong}
+    if kind != "one":
+        near, share = update_agreement(runs[kind][3], runs["one"][3],
+                                       runs[kind][4], runs["one"][4], lr)
+        out.update(params_vs_one_step_err=near,
+                   params_vs_one_step_share=share)
+    return out
+
+
+def check_update(tag, out):
+    """The gates of an emitted ``update_of``."""
+    adam_at, adam = out["adam_first_step_err"]
+    check(adam <= 1 and not out["adam_wrong"],
+          f"{tag}: first Adam step {adam_at} {adam} {out['adam_wrong']}")
+    near = out.get("params_vs_one_step_err", 0.0)
+    check(near <= 1, f"{tag}: parameters against the one step's {near}")
+
+
+def staged_gates(device, batch, stem, size=SIZE):
+    """One step, staged step and staged fuse_opt step from identical
+    weights at ``batch``: each staged form held to the one step (phase 6's
+    gates, the classifier leaf by leaf), its ISP gradients to the float64
+    plain backward on the cotangent its stage 4 received, its update
+    (``update_of``: the one step's too), and its launches. Returns the
+    staged steps' launch counts."""
+    raw, y, proc, clf = train_setup(device, batch, size)
+    params = proc.kernel_params()
+    cfg = TrainConfig(lr=TRAIN_LR)
+    runs, total = staged_runs(cfg, proc, clf, raw, y, STAGED_KINDS, stem), \
+        launches()
+    for kind in STAGED_KINDS:
+        tag = f"{kind} step (stem {stem}, B {batch})"
+        update = update_of(runs, kind, cfg.lr)
+        if kind == "one":
+            emit({"phase": "staged_one_step_update", "batch": batch,
+                  "stem_kernel": stem, **update})
+            check_update(tag, update)
+            continue
+        got = runs[kind][1]
+        check(got == launches(fwd_train=1, bwd_res=1, stem_fwd=stem,
+                              stem_bwd=stem), f"{tag}: launches {got}")
+        total = {k: total[k] + got[k] for k in total}
+        agree = step_agreement(runs[kind][0], runs["one"][0])
+        leaf, worst = leaf_agreement(runs[kind][0][0][1],
+                                     runs["one"][0][0][1])
+        _, grads_64 = witness(raw, params, runs[kind][2]["d"])
+        isp = runs[kind][0][0][0]
+        same_cot = max(max_rel(isp[ISP_NAMES[k]].double(), grads_64[k], 1e-3)
+                       for k in grads_64)
+        emit({"phase": "staged_vs_one_step", "kind": kind, "batch": batch,
+              "stem_kernel": stem, "loss": runs[kind][0][1],
+              "loss_one_step": runs["one"][0][1], **agree,
+              "clf_leaf_max_rel_err": [worst, leaf],
+              "isp_grads_vs_float64_bwd_same_cotangent": same_cot, **update})
+        check(agree["loss_abs_err"] <= LOSS_TOL, f"{tag}: loss")
+        check_update(tag, update)
+        check(agree["running_stats_max_rel_err"] <= STATS_TOL,
+              f"{tag}: running statistics")
+        check(max(agree["isp_grad_max_rel_err"].values()) <= BWD_PARAM,
+              f"{tag}: ISP gradients {agree['isp_grad_max_rel_err']}")
+        check(leaf <= CLF_GRAD_TOL, f"{tag}: classifier leaf {worst} {leaf}")
+        check(same_cot <= BWD_PARAM, f"{tag}: ISP gradients vs the float64 "
+                                     f"backward on stage 4's cotangent "
+                                     f"{same_cot}")
+    return total
+
+
+def staged_adversarial_gates(device, batch, size=SIZE):
+    """The adversarial staged step (SSIM aux through ``SSIMAux``, which
+    launches ``ssim_aux_value_grad``)
+    against the adversarial one step at ``batch``, at phase 8's gates, its
+    ISP gradients against the float64 backward on stage 4's cotangent, the
+    update of each (``update_of``), and its launches. Returns them."""
+    raw, y, proc, clf = adv_setup(device, batch, size)
+    cfg = adv_config()
+    runs, updates = {}, {}
+    for kind in ("one", "staged"):
+        p, c, state, step = adv_copy(cfg, proc, clf)
+        named = named_params(p, c)
+        before = {n: t.detach().clone() for n, t in named.items()}
+        if kind == "staged":
+            step = make_staged_train_step(cfg, p, c)
+            seen = stage4_cotangent(step)
+            params = {k: v.detach().clone()
+                      for k, v in p.kernel_params().items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        mets = step(state, raw, y)
+        torch.cuda.synchronize()
+        got = counts()
+        if kind == "staged":  # the eval-mode BN's input cotangent
+            bn = p.batch_norm
+            d_pre = seen["d"] * torch.rsqrt(bn.running_var
+                                            + bn.eps)[:, None, None]
+        runs[kind] = ({n: t.grad for n, t in p.named_parameters()},
+                      float(mets["loss"]), float(mets["loss_aux"]))
+        updates[kind] = (None, None, None,
+                         {n: t.detach().clone() for n, t in named.items()},
+                         {n: t.grad for n, t in named.items()},
+                         adam_first_step(named, before, state, cfg.lr))
+        del p, c, state, step, named, before
+    update = {kind: update_of(updates, kind, cfg.lr) for kind in updates}
+    (isp_s, loss_s, aux_s), (isp_o, loss_o, aux_o) = runs["staged"], \
+        runs["one"]
+    isp_err = {n: max_rel(isp_s[n].double(), isp_o[n].double(), 1e-3)
+               for n in isp_s}
+    _, grads_64 = witness(raw, params, d_pre)
+    same_cot = max(max_rel(isp_s[ISP_NAMES[k]].double(), grads_64[k], 1e-3)
+                   for k in grads_64)
+    emit({"phase": "staged_adversarial_vs_one_step", "batch": batch,
+          "loss": loss_s, "loss_one_step": loss_o, "loss_aux": aux_s,
+          "loss_aux_one_step": aux_o, "isp_grad_max_rel_err": isp_err,
+          "isp_grads_vs_float64_bwd_same_cotangent": same_cot,
+          "update": update, "launches": got})
+    check(abs(loss_s - loss_o) <= LOSS_TOL, "staged adversarial loss")
+    for kind, out in update.items():
+        check_update(f"adversarial {kind} step", out)
+    check(abs(aux_s - aux_o) <= LOSS_TOL, "staged adversarial loss_aux")
+    check(max(isp_err.values()) <= BWD_PARAM,
+          f"staged adversarial ISP gradients {isp_err}")
+    check(same_cot <= BWD_PARAM,
+          f"staged adversarial ISP gradients vs float64 {same_cot}")
+    check(got == launches(fwd=1, fwd_train=1, bwd_res=1, ssim=1),
+          f"staged adversarial launches {got}")
+    return got
+
+
+def staged_bf16_gate(device, batch, size=SIZE):
+    """One bfloat16 staged step with the stem flag against the bfloat16
+    one step from the same weights, at the float32 staged gates (loss,
+    running statistics, ISP gradients, the classifier leaf by leaf, the
+    update): the two run the same bfloat16 forward and backward. And its
+    launches (the stem's bfloat16 forms). Returns them."""
+    raw, y, proc, _ = train_setup(device, batch, size)
+    clf = bf16_classifier(device, train_classifier(device, "perturbed"),
+                          True)
+    cfg = TrainConfig(lr=TRAIN_LR)
+    runs = staged_runs(cfg, proc, clf, raw, y, ("one", "staged"), True)
+    agree = step_agreement(runs["staged"][0], runs["one"][0])
+    leaf, worst = leaf_agreement(runs["staged"][0][0][1],
+                                 runs["one"][0][0][1])
+    update = {kind: update_of(runs, kind, cfg.lr)
+              for kind in ("one", "staged")}
+    got = runs["staged"][1]
+    emit({"phase": "staged_bf16_vs_one_step", "batch": batch,
+          "loss": runs["staged"][0][1], "loss_one_step": runs["one"][0][1],
+          **agree, "clf_leaf_max_rel_err": [worst, leaf], "update": update,
+          "launches": got})
+    check(np.isfinite(runs["staged"][0][1])
+          and agree["loss_abs_err"] <= LOSS_TOL, "bfloat16 staged step loss")
+    for kind, out in update.items():
+        check_update(f"bfloat16 {kind} step", out)
+    check(agree["running_stats_max_rel_err"] <= STATS_TOL,
+          "bfloat16 staged step running statistics")
+    check(max(agree["isp_grad_max_rel_err"].values()) <= BWD_PARAM,
+          f"bfloat16 staged step ISP gradients "
+          f"{agree['isp_grad_max_rel_err']}")
+    check(leaf <= CLF_GRAD_TOL,
+          f"bfloat16 staged step classifier leaf {worst} {leaf}")
+    check(got == launches(fwd_train=1, bwd_res=1, bf16_fwd=1, bf16_bwd=1),
+          f"bfloat16 staged step launches {got}")
+    return got
+
+
+def staged_times(device, smi, batch, size=SIZE, iters=STAGED_ITERS,
+                 calls=3):
+    """CUDA-event ms of the one, staged and staged fuse_opt steps at
+    ``batch`` in two rounds, then each one's device idle share from a
+    profile of ``calls`` calls."""
+    raw, y, proc, clf = train_setup(device, batch, size)
+    cfg = TrainConfig(lr=TRAIN_LR)
+    def runner(kind):
+        _, _, state, step = staged_copy(cfg, proc, clf, kind)
+        return lambda _: step(state, raw, y)
+    runners = {kind: runner(kind) for kind in STAGED_KINDS}
+    ms = {kind: [] for kind in STAGED_KINDS}
+    for order in (STAGED_KINDS, STAGED_KINDS[::-1]):
+        for kind in order:
+            ms[kind].append(cuda_ms(runners[kind], [None] * 2, iters))
+    for kind in STAGED_KINDS:
+        kernels, busy, wall_ms = profile_calls(runners[kind], None, calls)
+        emit({"phase": "staged_times", "kind": kind, "batch": batch,
+              "ms": ms[kind], "imgs_per_s": batch / min(ms[kind]) * 1e3,
+              "wall_ms": wall_ms, "device_busy_ms": busy,
+              "device_idle_share": 1 - busy / wall_ms,
+              "port_kernels_device_ms": port_kernel_ms(kernels),
+              "card": smi})
+    return ms
+
+
+def phase_staged(device, smi, batches=(SERVE_BATCH, BIG_BATCH),
+                 adv_batch=SERVE_BATCH, bf16_batch=BIG_BATCH, size=SIZE):
+    """The staged train step (``make_staged_train_step``, with and without
+    fuse_opt) at full ResNet-18 width, float32, at ``batches`` with the
+    stem flag off and on against the one step; the adversarial staged
+    step at ``adv_batch``; a bfloat16 staged step with the stem flag at
+    ``bf16_batch``; then the three steps' times and idle shares. Returns
+    the launches of every staged step of the gates: the staged path's
+    counts, each read after that step alone."""
+    total = launches()
+    for b in batches:
+        for stem in (False, True):
+            got = staged_gates(device, b, stem, size)
+            total = {k: total[k] + got[k] for k in total}
+    for got in (staged_adversarial_gates(device, adv_batch, size),
+                staged_bf16_gate(device, bf16_batch, size)):
+        total = {k: total[k] + got[k] for k in total}
+    for b in batches:
+        staged_times(device, smi, b, size)
+    emit({"phase": "staged", "launches": total})
+    check(total["fused_isp_bwd"] == 0, "the staged path never recomputes")
+    return total
+
+
 def bf16_stem_timings(device, kind, b):
     """{form: {ms, plain_ms, bound_ms, bound_by, library_ms}} of the five
     bfloat16 forms at B = ``b``, 256x256, by CUDA events, beside the
@@ -4896,6 +5283,9 @@ def main():
     path_launches.update({n: v for n, v in phase_bf16_steps(device).items()
                           if n in STEM_BF16})
     lap("bf16_paths")
+    # the staged train step: its gated steps are its path's run
+    staged_launches = phase_staged(device, smi)
+    lap("staged")
     batches = (SERVE_BATCH, BIG_BATCH)
     trains = {b: train_runner(device, b) for b in batches}
     trains_stem = {b: train_runner(device, b, stem_kernel=True)
@@ -4978,6 +5368,8 @@ def main():
             "segmentation_launches": seg_launches[name],
             # launches of the store-fed train epochs (stem flag off and on)
             "folder_data_launches": folder_launches.get(name, 0),
+            # launches of the staged step's gated steps (phase_staged)
+            "staged_launches": staged_launches[name],
             "max_abs_err": max_err[name],
             # ms: CUDA events around the wrapper call (parameter packing,
             # and for the backward the partials' sum and unpacking,

@@ -21,6 +21,12 @@ from raw2logit_tpu_torch.ops.filters import conv2d_single, debayer_conv
 from raw2logit_tpu_torch.ops.mosaic import pack_raw
 
 
+def default_camera_params():
+    """(black level, white balance, colour matrix) of the ISP's default
+    camera."""
+    return constants.DEFAULT_CAMERA_PARAMS
+
+
 def _debayer_init():
     """OIHW (co, ci, 3, 3) kernel: K_RB / K_G / K_RB on the diagonal, zero
     cross-channel taps (all trainable)."""

@@ -58,10 +58,12 @@ def pack_params(params):
 def _colour_matrices(device):
     """M_RGB2YUV (float64) and M_YUV2RGB (float32) on ``device``, copied
     there once: a copy from host memory on every call would stall the
-    host until the device reaches it."""
-    return (torch.as_tensor(constants.M_RGB_2_YUV, dtype=torch.float64,
-                            device=device),
-            torch.as_tensor(constants.M_YUV_2_RGB, device=device))
+    host until the device reaches it. Made outside inference mode, so
+    that autograd may save them whatever mode the first caller ran in."""
+    with torch.inference_mode(False):
+        return (torch.as_tensor(constants.M_RGB_2_YUV, dtype=torch.float64,
+                                device=device),
+                torch.as_tensor(constants.M_YUV_2_RGB, device=device))
 
 
 def fused_isp_reference(raw, params):

@@ -115,8 +115,9 @@ class SSIMAux(torch.autograd.Function):
 @functools.cache
 def _taps(device):
     """The 11 gaussian taps (``ops.ssim.gauss_np``) on ``device``, copied
-    there once."""
-    return torch.as_tensor(gauss_np(11), device=device)
+    there once (outside inference mode, as every cached constant)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(gauss_np(11), device=device)
 
 
 @functools.cache

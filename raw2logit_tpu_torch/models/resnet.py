@@ -10,6 +10,8 @@ differ from torchvision's in three places:
   * in train mode the batch norms update the running variance with the
     biased batch variance, as flax does (``FlaxBatchNorm2d``).
 
+``ResNet(pool_two_stage=True)`` computes the plain stem's max pool as
+JAX's two-stage decomposition (``stem_max_pool``), bitwise the same.
 ``ResNet(stem_kernel=True)`` (JAX ``stem_pallas``) runs the stem, conv1 +
 bn1 + ReLU + maxpool, through the CUDA kernels of ``kernels/stem.py``. It
 keeps the parameter names, so state dicts load either way.
@@ -206,6 +208,21 @@ RESNET_CONFIGS = {
 }
 
 
+def stem_max_pool(y, two_stage=False):
+    """The stem's 3x3/2 max pool, padded (1, 1) with -inf, of NCHW ``y``.
+
+    ``two_stage=True`` is JAX's exact decomposition (a TPU probe): a 2x2/1
+    pool padded (1, 0), then a 2x2/2 pool. Per axis max(a[2i], a[2i+1])
+    with a[j] = max(x[j-1], x[j]) covers x[2i-1..2i+1], the same taps, so
+    the value is bitwise the same, and so is the gradient wherever a
+    window's maximum is unique. As in JAX it applies to even H and W
+    only (an odd one takes the 3x3 pool)."""
+    if not two_stage or y.shape[2] % 2 or y.shape[3] % 2:
+        return F.max_pool2d(y, 3, 2, padding=1)
+    a = F.max_pool2d(F.pad(y, (1, 0, 1, 0), value=-math.inf), 2, 1)
+    return F.max_pool2d(a, 2, 2)
+
+
 def _lecun_normal_(weight, generator):
     """flax's lecun_normal: truncated normal (+-2 sd) with variance
     1 / fan_in after truncation."""
@@ -237,11 +254,15 @@ class ResNet(nn.Module):
 
     ``dtype``: the compute dtype, float32 or bfloat16 (module docstring);
     parameters and statistics stay float32, the logits are float32.
+
+    ``pool_two_stage``: the plain stem pools through ``stem_max_pool``'s
+    two-stage form (JAX's flag; the same parameters and result).
     """
 
     def __init__(self, block_cls=BasicBlock, stage_sizes=(2, 2, 2, 2),
                  num_classes=2, num_filters=64, in_channels=3, device=None,
-                 generator=None, stem_kernel=False, dtype=torch.float32):
+                 generator=None, stem_kernel=False, dtype=torch.float32,
+                 pool_two_stage=False):
         super().__init__()
         if stem_kernel and (num_filters != 64 or in_channels != 3):
             raise NotImplementedError(
@@ -252,6 +273,7 @@ class ResNet(nn.Module):
             raise NotImplementedError(f"the compute dtype is float32 or "
                                       f"bfloat16, got {dtype}")
         self.stem_kernel, self.dtype = stem_kernel, dtype
+        self.pool_two_stage = pool_two_stage
         device = resolve_device(device)
         self.conv1 = Conv2d(in_channels, num_filters, 7, 2, padding=3,
                             device=device, compute_dtype=dtype)
@@ -310,8 +332,7 @@ class ResNet(nn.Module):
         else:
             y = F.relu(self.bn1(self.conv1(x)))
             feats.append(y)  # 1/2
-            # 3x3/2 maxpool, pad (1, 1) of -inf
-            y = F.max_pool2d(y, 3, 2, padding=1)
+            y = stem_max_pool(y, self.pool_two_stage)
         layers = (self.layers[:max(depth - 1, 0)] if return_features
                   else self.layers)
         for layer in layers:

@@ -59,7 +59,10 @@ DEFAULT_CAMERA_PARAMS = (
 
 @functools.lru_cache(maxsize=None)
 def _device_constant(values, shape, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device).reshape(shape)
+    """The kept tensor, made outside inference mode whatever mode its first
+    caller runs in, so that autograd may save it later."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device).reshape(shape)
 
 
 def on_device(a, dtype, device):

@@ -77,9 +77,11 @@ def map_coordinates(plane, coords, mode="constant"):
 @functools.lru_cache(maxsize=None)
 def cached_on(device, fn, *args):
     """``fn(*args).to(device)``, computed and copied once per device, ``fn``
-    and arguments (hashable); the tensor is shared: do not write into
-    it."""
-    return fn(*args).to(device)
+    and arguments (hashable), outside inference mode (so that autograd
+    may save it after an inference-mode caller filled the cache); the
+    tensor is shared: do not write into it."""
+    with torch.inference_mode(False):
+        return fn(*args).to(device)
 
 
 def _linear_weights(n_in, n_out):

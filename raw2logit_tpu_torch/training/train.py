@@ -36,9 +36,10 @@ and the tracked images. ``--n_devices`` defaults to the group's size.
 ``--dataset`` takes the folder datasets (Microscopy, the Drone sets,
 under ``data/`` of the working directory, at exposure ``--I_ratio``) and
 the synthetic ones; ``--tracking_uri`` (or ``MLFLOW_TRACKING_URI``)
-mirrors the run to an MLflow server. The options the port leaves out
-(``--staged_step``, ``--fuse_opt``, TPU compile-budget workarounds) raise
-``NotImplementedError``.
+mirrors the run to an MLflow server. ``--staged_step`` trains with the
+staged step (``make_staged_train_step``), and ``--fuse_opt`` with it
+steps one Adam per module inside its stages (a split state, whose
+checkpoints resume only with ``--fuse_opt``).
 """
 
 import argparse
@@ -66,6 +67,7 @@ from raw2logit_tpu_torch.tracking.run import run_dir
 from raw2logit_tpu_torch.training import checkpoint as ckpt
 from raw2logit_tpu_torch.training.core import (TrainConfig, create_train_state,
                                                make_eval_step,
+                                               make_staged_train_step,
                                                make_train_step,
                                                task_loss_fn)
 
@@ -186,10 +188,15 @@ def build_parser():
                    help="trace train steps [1, 4) of each fold into the "
                         "run's profile/ directory (torch.profiler)")
     p.add_argument("--staged_step", action="store_true",
-                   help="the JAX package's four-program staged step (a TPU "
-                        "compile-budget workaround)")
+                   help="the staged train step: the same update in explicit "
+                        "stages (ISP forward, classifier gradient, aux "
+                        "gradient, ISP backward, Adam), each calling the "
+                        "kernels directly")
     p.add_argument("--fuse_opt", action="store_true",
-                   help="with --staged_step: fold Adam into its programs")
+                   help="with --staged_step: one Adam per module, each "
+                        "stepped inside the stage that computes its "
+                        "gradients (the same update); checkpoints resume "
+                        "only with the same flag")
     p.add_argument("--checkpoint_every_n_epochs", type=int, default=0,
                    help="periodic checkpointing for failure recovery "
                         "(0 = only final)")
@@ -200,16 +207,6 @@ def build_parser():
                    help="where to train: cuda (the default; raises without "
                         "CUDA) or cpu")
     return p
-
-
-def _refuse_unported(args):
-    """Raise NotImplementedError for the options the port leaves out,
-    naming the ROADMAP Queue 1 item."""
-    if args.staged_step or args.fuse_opt:
-        raise NotImplementedError(
-            "--staged_step and --fuse_opt select TPU compile-budget "
-            "workarounds; the port's one train step computes their update "
-            "(ROADMAP Queue 1 item 3)")
 
 
 def _static_pipeline(args, dataset):
@@ -436,7 +433,9 @@ def _validate(eval_step, state, loader, generator, device, size):
 
 def run_train(args):
     print(args)
-    _refuse_unported(args)
+    if args.fuse_opt and not args.staged_step:
+        raise SystemExit("--fuse_opt requires --staged_step (the "
+                         "monolith already fuses the optimizer)")
     device = resolve_device(None if args.device == "cuda" else args.device)
     distributed.initialize(backend="gloo" if device.type == "cpu" else None)
     _, size = distributed.world()
@@ -565,12 +564,16 @@ def run_train(args):
 
         # the reference processor is the default processor as built (as
         # in the JAX package, --processor_uri loads the trained one only)
-        state = create_train_state(cfg, processor, classifier)
+        state = create_train_state(cfg, processor, classifier,
+                                   split_opt=args.fuse_opt)
         if args.processor_uri:
             ckpt.load_module(args.processor_uri, processor)
         if args.classifier_uri:
             ckpt.load_module(args.classifier_uri, classifier)
-        train_step = make_train_step(cfg, processor, classifier)
+        train_step = (make_staged_train_step(cfg, processor, classifier,
+                                             fuse_opt=args.fuse_opt)
+                      if args.staged_step
+                      else make_train_step(cfg, processor, classifier))
         eval_step = make_eval_step(cfg, processor, classifier)
         generator = torch.Generator().manual_seed(args.seed + k_iter)
         t0 = time.time()

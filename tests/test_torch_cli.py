@@ -291,17 +291,6 @@ def test_cli_resume_continues_from_the_last_checkpoint(tmp_path, monkeypatch,
     assert steps == [0, 1]
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--fuse_opt"], "item 3"),
-    (["--staged_step"], "item 3"),
-])
-def test_cli_refuses_unported_options(flags, match, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    args = ["--dataset", "SyntheticMicroscopy", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(args + flags)
-
-
 def test_cli_static_mode_with_and_without_precompute(tmp_path, monkeypatch,
                                                      tiny_dataset):
     """--processing_mode static, with the pipeline in every step and with
