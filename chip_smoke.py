@@ -2119,16 +2119,16 @@ PROFILE_SETTLE_S, PROFILE_ATTEMPTS = 0.05, 5
 PROFILE_PRIMER, PROFILE_WINDOW = "spin_kernel", "r2l_measured_call"
 # ``record_function`` ranges, whose device-side records span the kernels
 # launched inside them (counted as busy, they would read the gaps between
-# those kernels as busy too): the measured window and the staged step's
-# stages (``make_staged_train_step``'s ``step.programs``)
-PROFILE_RANGES = (PROFILE_WINDOW, "isp_fwd", "clf_grad", "clf_grad_bn",
-                  "aux_grad", "isp_bwd", "opt_apply")
+# those kernels as busy too): the measured window here, and the port's
+# spans (``tracing``, named ``r2l.``; off unless tracing is on)
+PROFILE_RANGES = (PROFILE_WINDOW,)
 
 
 def measured_records(prof):
     """(device events of the measured calls, their window's start in the
     trace's us): the device records that start in the PROFILE_WINDOW
-    range, primers and the ranges' own device-side records left out."""
+    range, primers and the ranges' and spans' own device-side records
+    left out."""
     from torch.autograd import DeviceType
     events = prof.events()
     starts = [e.time_range.start for e in events
@@ -2136,6 +2136,7 @@ def measured_records(prof):
     t0 = (min(starts) if starts else float("-inf")) - PROFILE_SETTLE_S * 5e5
     return [e for e in events if e.device_type == DeviceType.CUDA
             and PROFILE_PRIMER not in e.name and e.name not in PROFILE_RANGES
+            and not e.name.startswith("r2l.")
             and e.time_range.start >= t0], t0
 
 

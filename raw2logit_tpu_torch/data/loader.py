@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from raw2logit_tpu_torch import tracing
+
 
 class ArrayDataset:
     """Indexable (img, label) view over a pair of stacked arrays."""
@@ -59,6 +61,10 @@ class Loader:
             every item).
         seed: seed of the shuffle.
         prefetch: assemble the next batch on a background thread.
+
+    The consumer's wait for each batch (with ``prefetch`` the wait on the
+    worker, else the batch's assembly) runs inside the span
+    ``r2l.loader.wait``.
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=None,
@@ -104,7 +110,9 @@ class Loader:
     def __iter__(self):
         if not self.prefetch:
             for idx in self._batches():
-                yield self._assemble(idx)
+                with tracing.span("r2l.loader.wait"):
+                    batch = self._assemble(idx)
+                yield batch
             return
         yield from self._prefetch()
 
@@ -113,7 +121,6 @@ class Loader:
         the consumer stops early (break or exception)."""
         q = queue.Queue(maxsize=2)
         cancel = threading.Event()
-        end = object()
 
         def worker():
             try:
@@ -123,15 +130,12 @@ class Loader:
                     q.put(self._assemble(idx))
             except BaseException as e:  # surfaced in the consumer
                 q.put(e)
-                return
-            q.put(end)
 
         threading.Thread(target=worker, daemon=True).start()
         try:
-            while True:
-                item = q.get()
-                if item is end:
-                    return
+            for _ in range(len(self)):  # the worker puts as many batches
+                with tracing.span("r2l.loader.wait"):
+                    item = q.get()
                 if isinstance(item, BaseException):
                     raise item
                 yield item

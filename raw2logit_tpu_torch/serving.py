@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from raw2logit_tpu_torch import resolve_device
+from raw2logit_tpu_torch import resolve_device, tracing
 from raw2logit_tpu_torch.data.datasets import list_images_in_dir, load_image
 
 
@@ -132,20 +132,30 @@ class Predictor:
 
     def __call__(self, raw_batch):
         """raw (B, H, W) numpy array or tensor -> logits (classification)
-        or sigmoid masks (segmentation), a tensor on the device."""
-        if not torch.is_tensor(raw_batch):
-            raw_batch = torch.as_tensor(np.asarray(raw_batch, np.float32))
-        raw = raw_batch.to(self.device, torch.float32).contiguous()
-        with torch.inference_mode():
-            if self.process_fn is not None:
-                rgb = self.process_fn(raw)
-            elif self.processor is not None:
-                rgb, _ = self.processor(raw)
-            else:
-                rgb = raw
-            out = self.classifier(rgb)
-            if self.task == "segmentation":
-                return torch.sigmoid(out)
+        or sigmoid masks (segmentation), a tensor on the device.
+
+        A call runs inside the span ``r2l.serve``, its stages inside
+        ``r2l.serve.copy_in`` (to a float32 tensor on the device),
+        ``.process`` (the ISP or ``process_fn``) and ``.model`` (the task
+        model, and the sigmoid for segmentation)."""
+        with tracing.span("r2l.serve"):
+            with tracing.span("r2l.serve.copy_in"):
+                if not torch.is_tensor(raw_batch):
+                    raw_batch = torch.as_tensor(np.asarray(raw_batch,
+                                                           np.float32))
+                raw = raw_batch.to(self.device, torch.float32).contiguous()
+            with torch.inference_mode():
+                with tracing.span("r2l.serve.process"):
+                    if self.process_fn is not None:
+                        rgb = self.process_fn(raw)
+                    elif self.processor is not None:
+                        rgb, _ = self.processor(raw)
+                    else:
+                        rgb = raw
+                with tracing.span("r2l.serve.model"):
+                    out = self.classifier(rgb)
+                    if self.task == "segmentation":
+                        out = torch.sigmoid(out)
             return out
 
     def predict_dir(self, image_dir, batch_size=32, bits=16,

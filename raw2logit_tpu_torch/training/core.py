@@ -48,6 +48,7 @@ from typing import Any
 import torch
 
 from raw2logit_tpu_torch import losses as L
+from raw2logit_tpu_torch import tracing
 from raw2logit_tpu_torch.augment import get_augmentation
 from raw2logit_tpu_torch.isp.batchnorm import bn_input_cotangent
 from raw2logit_tpu_torch.kernels.fused_isp import fused_isp, fused_isp_train
@@ -207,19 +208,20 @@ def create_train_state(cfg, processor, classifier, split_opt=False):
     adversarial mode the reference processor is a deep copy of
     ``processor`` as it is now. ``split_opt`` holds
     ``make_optimizer(split=True)``'s pair, which the staged step with
-    ``fuse_opt`` steps."""
-    get_augmentation(cfg.augmentation)  # raises on an unknown kind
-    ref = None
-    if cfg.adv_training:
-        if processor is None:
-            raise ValueError("adversarial training needs a processor")
-        ref = copy.deepcopy(processor).eval().requires_grad_(False)
-    if split_opt:
-        sides = make_optimizer(cfg, processor, classifier, split=True)
-        optimizer, scheduler = (tuple(None if side is None else side[i]
-                                      for side in sides) for i in (0, 1))
-    else:
-        optimizer, scheduler = make_optimizer(cfg, processor, classifier)
+    ``fuse_opt`` steps. Runs inside the span ``r2l.setup.state``."""
+    with tracing.span("r2l.setup.state"):
+        get_augmentation(cfg.augmentation)  # raises on an unknown kind
+        ref = None
+        if cfg.adv_training:
+            if processor is None:
+                raise ValueError("adversarial training needs a processor")
+            ref = copy.deepcopy(processor).eval().requires_grad_(False)
+        if split_opt:
+            sides = make_optimizer(cfg, processor, classifier, split=True)
+            optimizer, scheduler = (tuple(None if side is None else side[i]
+                                          for side in sides) for i in (0, 1))
+        else:
+            optimizer, scheduler = make_optimizer(cfg, processor, classifier)
     return TrainState(step=0, processor=processor, classifier=classifier,
                       optimizer=optimizer, scheduler=scheduler,
                       ref_processor=ref)
@@ -380,7 +382,13 @@ def make_train_step(cfg, processor, classifier):
     leaves the gradients in ``.grad``, and does not synchronise with the
     host unless an augmentation draws. ``generator`` (a CPU
     ``torch.Generator``) is where augmentation draws from. In adversarial
-    mode ``loss`` is the task loss plus ``loss_aux``."""
+    mode ``loss`` is the task loss plus ``loss_aux``.
+
+    A step runs inside the span ``r2l.step``, its stages inside its
+    children ``r2l.step.process`` (the processor), ``.task``
+    (augmentation, task model, loss), ``.aux`` (adversarial: the
+    reference's RGB and the aux term), ``.backward`` and ``.optimizer``
+    (the gradients' sum over the ranks, Adam, the scheduler)."""
     loss_fn = task_loss_fn(cfg)
     aux_fn = (L.aux_loss(cfg.adv_aux_loss, cfg.adv_aux_weight)
               if cfg.adv_training else None)
@@ -389,21 +397,27 @@ def make_train_step(cfg, processor, classifier):
                   and _fast(processor))
 
     def step(state, raw, y, generator=None):
-        _check_modules(state, processor, classifier)
-        _check_joint(state)
-        state.optimizer.zero_grad(set_to_none=True)
-        rgb = _process(cfg, state.processor, raw, True)
-        loss, mets = _task_loss(cfg, loss_fn, state.classifier, rgb, y,
-                                generator)
-        loss_aux = torch.zeros((), device=loss.device)
-        if aux_fn is not None:
-            loss_aux = _aux_loss(cfg, aux_fn, aux_kernel,
-                                 _reference_rgb(state, raw), rgb)
-            loss = loss + loss_aux
-        distributed.backward(loss)
-        _apply(state.optimizer, state.scheduler)
-        state.step += 1
-        return dict(mets, loss=loss.detach(), loss_aux=loss_aux.detach())
+        with tracing.span("r2l.step"):
+            _check_modules(state, processor, classifier)
+            _check_joint(state)
+            state.optimizer.zero_grad(set_to_none=True)
+            with tracing.span("r2l.step.process"):
+                rgb = _process(cfg, state.processor, raw, True)
+            with tracing.span("r2l.step.task"):
+                loss, mets = _task_loss(cfg, loss_fn, state.classifier, rgb,
+                                        y, generator)
+            loss_aux = torch.zeros((), device=loss.device)
+            if aux_fn is not None:
+                with tracing.span("r2l.step.aux"):
+                    loss_aux = _aux_loss(cfg, aux_fn, aux_kernel,
+                                         _reference_rgb(state, raw), rgb)
+                loss = loss + loss_aux
+            with tracing.span("r2l.step.backward"):
+                distributed.backward(loss)
+            with tracing.span("r2l.step.optimizer"):
+                _apply(state.optimizer, state.scheduler)
+            state.step += 1
+            return dict(mets, loss=loss.detach(), loss_aux=loss_aux.detach())
 
     return step
 
@@ -433,15 +447,6 @@ def _accumulate(param, grad):
         param.grad = grad
     else:
         param.grad.add_(grad)
-
-
-def _ranged(name, fn):
-    """``fn`` inside a ``torch.profiler.record_function`` range ``name``."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return run
 
 
 def make_staged_train_step(cfg, processor, classifier, donate=True,
@@ -481,7 +486,7 @@ def make_staged_train_step(cfg, processor, classifier, donate=True,
     5. ``opt_apply`` (without ``fuse_opt``): the joint Adam and scheduler.
 
     ``step.programs`` maps these names to the stage callables, each
-    running inside a ``torch.profiler.record_function`` range of its name;
+    running inside the span ``r2l.staged.<name>`` (``tracing``);
     ``step`` looks each stage up there when it runs, so a stage replaced
     in ``step.programs`` is the one that runs. ``step.fuse_opt`` and
     ``step.isp_residuals`` say which form this is. ``fuse_opt`` needs the split state of ``create_train_state(split_opt=
@@ -591,7 +596,8 @@ def make_staged_train_step(cfg, processor, classifier, donate=True,
         programs["aux_grad"] = aux_grad
     if not fuse_opt:
         programs["opt_apply"] = opt_apply
-    programs = {name: _ranged(name, fn) for name, fn in programs.items()}
+    programs = {name: tracing.span(f"r2l.staged.{name}", fn)
+                for name, fn in programs.items()}
     grad_stage = "clf_grad_bn" if bn_in_clf else "clf_grad"
 
     def step(state, raw, y, generator=None):

@@ -53,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from raw2logit_tpu_torch import resolve_device
+from raw2logit_tpu_torch import resolve_device, tracing
 from raw2logit_tpu_torch.data import (Loader, PrecomputedRGBView, Subset,
                                       dataset_stats, get_dataset, k_fold,
                                       precompute_pipeline_rgb)
@@ -331,9 +331,11 @@ def overlay_imagenet_weights(args, task, processor, classifier):
 class StepProfiler:
     """``--profile``: a ``torch.profiler`` trace of global train steps [1, 4)
     (step 0 warms up), written to ``<out_dir>/trace.json`` when the window
-    closes, or by ``close`` when training ends inside it. Call ``before``
-    and ``after`` around each step; with ``out_dir`` None it does
-    nothing. It only observes: what is trained is the same."""
+    closes, or by ``close`` when training ends inside it, with the port's
+    spans (``tracing``) on for the window, so that the trace holds the
+    steps' stages and the loader's waits as ``r2l.`` ranges. Call
+    ``before`` and ``after`` around each step; with ``out_dir`` None it
+    does nothing. It only observes: what is trained is the same."""
 
     FIRST, END = 1, 4
 
@@ -348,6 +350,7 @@ class StepProfiler:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=activities)
             self.prof.start()
+            tracing.enable()
 
     def after(self):
         self.steps += 1
@@ -360,6 +363,7 @@ class StepProfiler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()
+        tracing.disable()
         self.prof.export_chrome_trace(os.path.join(self.out_dir,
                                                    "trace.json"))
         self.prof = None

@@ -3,8 +3,9 @@ the PyTorch port, on the CPU at 64x64.
 
 ``--profile`` (JAX ``training/train.py:487-501, 538-541``) traces global
 train steps [1, 4) of a fold with ``torch.profiler`` into the run's
-``profile/`` directory, also when training ends inside that window, and
-changes nothing that is trained: the run's metrics equal those of the same
+``profile/`` directory, also when training ends inside that window, with
+the port's spans on for the window (its ``r2l.`` ranges), and changes
+nothing that is trained: the run's metrics equal those of the same
 run without the flag, bit for bit. ``--compute_dtype bfloat16`` trains
 the task model in bfloat16 (the ISP stays float32) for classification,
 segmentation and the adversarial step with a frozen classifier; its
@@ -18,7 +19,7 @@ import os
 import pytest
 import torch
 
-from raw2logit_tpu_torch import serving
+from raw2logit_tpu_torch import serving, tracing
 from raw2logit_tpu_torch.data import (SyntheticRawClassification,
                                       SyntheticRawSegmentation, datasets)
 from raw2logit_tpu_torch.training import train as cli
@@ -61,7 +62,10 @@ def test_profile_writes_a_trace_and_changes_nothing(tmp_path, monkeypatch,
     (traced,) = cli.main(args + ["--run_name", "traced", "--profile"])
     path = os.path.join(traced["run"].dir, "profile", "trace.json")
     with open(path) as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"r2l.step", "r2l.step.backward", "r2l.step.optimizer"} <= names
+    assert tracing.span("r2l.step") is tracing.NOOP  # off after the window
     assert not os.path.exists(os.path.join(plain["run"].dir, "profile"))
     assert metrics(traced) == metrics(plain)
     assert traced["state"].step == plain["state"].step

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from raw2logit_tpu_torch import tracing
 from raw2logit_tpu_torch.data import (DRONE_CAMERA_PARAMS,
                                       MICROSCOPY_CAMERA_PARAMS,
                                       SyntheticRawClassification,
@@ -186,8 +187,9 @@ def test_staged_step_matches_one_step(case):
 def test_staged_step_stages_and_records():
     """``step.programs`` names JAX's programs (clf_grad_bn with the
     train-mode output BN, aux_grad in adversarial mode, no opt_apply with
-    fuse_opt), and a profile of one step holds a range of each stage that
-    ran."""
+    fuse_opt), and with tracing on a profile of one step holds a span
+    ``r2l.staged.<stage>`` of each stage that ran, as the port's own
+    record does."""
     proc, clf = modules("classification", True)
     cfg = TrainConfig(lr=LR)
     step = make_staged_train_step(cfg, proc, clf)
@@ -200,10 +202,17 @@ def test_staged_step_stages_and_records():
                                     "isp_fwd"]
     state = create_train_state(cfg, proc, clf)
     raw, y = mosaics("classification")
-    with torch.profiler.profile() as prof:
-        step(state, raw, y)
+    ran = {f"r2l.staged.{n}" for n in ("isp_fwd", "clf_grad_bn", "isp_bwd",
+                                        "opt_apply")}
+    tracing.enable()
+    try:
+        with torch.profiler.profile() as prof:
+            step(state, raw, y)
+    finally:
+        spans = tracing.disable()
     names = {e.name for e in prof.events()}
-    assert {"isp_fwd", "clf_grad_bn", "isp_bwd", "opt_apply"} <= names
+    assert ran <= names
+    assert {s.name for s in spans} == ran
 
 
 def test_fuse_opt_refuses_a_joint_state():
