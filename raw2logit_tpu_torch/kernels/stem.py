@@ -9,7 +9,9 @@ Port of ``raw2logit_tpu/pallas/stem.py`` (``_conv_kernel``,
 ``stem_reference``). The public functions take NCHW input and OIHW
 weights; the TPU kernels' space-to-depth phase planes and selector
 matrices have no counterpart, since the CUDA kernels read strided taps
-directly.
+directly. ``stem_eval`` is differentiable where JAX's is not: its backward
+runs the pool backward, dW and d_x kernels of ``StemTrain``'s, with the
+running statistics held constant.
 
 Contract: x (B, 3, H, W) and the weights (64, 3, 7, 7), both float32, H
 and W multiples of 4 (the pooled plane is (H / 4, W / 4)); the JAX kernels
@@ -573,31 +575,60 @@ def stem_train(x, w, gamma, beta, eps=1e-5, dtype=torch.float32):
 
 
 class _StemEval(torch.autograd.Function):
-    """The eval-mode stem: forward kernels only. Like the JAX package's
-    ``stem_eval``, a bare kernel call, it has no backward."""
+    """``apply(x, w, gamma, beta, mean, var, eps, dtype, grad)`` -> pooled
+    in ``dtype``: the eval-mode stem, the batch norm folded with the
+    running statistics ``mean`` and ``var``. The forward runs the conv
+    (without statistics) and BN-pool kernels and, where ``grad`` (grad
+    mode was on at the call) and an input needs a gradient, saves what
+    the backward reads (x only where w needs one); otherwise nothing.
+
+    The backward runs the same kernels as ``StemTrain``'s. The pool
+    backward rebuilds n = act alpha + shift from the folded statistics,
+    so its d_n is the eval-mode one, and its sums are dbeta = sum d_n and
+    dgamma = sum d_n xhat, xhat = (act - mean) inv. The running
+    statistics are constants, so the batch norm's input cotangent is d_a
+    = gamma inv d_n: ``bn_input_cotangent`` with coef = (gamma inv, 0, 0,
+    mean, inv), which the d_x (where x needs a gradient) and dW (where w
+    does) kernels take unchanged. The statistics get no gradient, and
+    nothing is summed over a process group: in eval mode each rank's
+    statistics are its own (dgamma and dbeta are this rank's share, as in
+    ``StemTrain``). JAX's ``stem_eval`` has no backward."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, mean, var, eps, dtype):
+    def forward(ctx, x, w, gamma, beta, mean, var, eps, dtype, grad):
         act, _, _ = stem_conv(x, w, stats=False, dtype=dtype)
-        _, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
+        inv, alpha, shift = bn_fold(gamma, beta, mean, var, eps)
+        if grad and any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
+                                  act, alpha, shift, mean, inv)
         return stem_bnpool(act, alpha, shift)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, d_pooled):
-        raise NotImplementedError(
-            "the eval-mode stem kernel has no backward (neither has the JAX "
-            "package's stem_eval): differentiate through a stem_kernel=True "
-            "ResNet in train mode, or build it with stem_kernel=False")
+        x, w, act, alpha, shift, mean, inv = ctx.saved_tensors
+        d_n, sd, sdx = stem_pool_bwd(act, d_pooled.contiguous(), alpha, shift,
+                                     mean, inv)
+        zero = torch.zeros_like(inv)
+        coef = (alpha, zero, zero, mean, inv)
+        need_x, need_w, need_g, need_b = ctx.needs_input_grad[:4]
+        d_w = stem_conv_dw(x, act, d_n, coef) if need_w else None
+        d_x = stem_conv_dx(act, d_n, coef, w) if need_x else None
+        return (d_x, d_w, sdx.float() if need_g else None,
+                sd.float() if need_b else None, None, None, None, None, None)
 
 
 def stem_eval(x, w, gamma, beta, mean, var, eps=1e-5, dtype=torch.float32):
     """Eval-mode fused stem, the batch norm folded with the running
-    statistics: x (B, 3, H, W) -> (B, 64, H/4, W/4) in ``dtype``. A
-    backward through it raises ``NotImplementedError``."""
+    statistics: x (B, 3, H, W) -> (B, 64, H/4, W/4) in ``dtype``,
+    differentiable in x, w, gamma and beta (``_StemEval``: the pool
+    backward, d_x and dW kernels, as ``stem_train``'s backward, with the
+    statistics held constant). Under ``no_grad`` it keeps nothing for a
+    backward."""
     check_stem_input(x, w)
     _check_dtype(dtype)
     return _StemEval.apply(x.contiguous(), w.contiguous(), gamma, beta, mean,
-                           var, eps, dtype)
+                           var, eps, dtype, torch.is_grad_enabled())
 
 
 def _stream(t):

@@ -11,10 +11,15 @@ differ from torchvision's in three places:
     biased batch variance, as flax does (``FlaxBatchNorm2d``).
 
 ``ResNet(pool_two_stage=True)`` computes the plain stem's max pool as
-JAX's two-stage decomposition (``stem_max_pool``), bitwise the same.
-``ResNet(stem_kernel=True)`` (JAX ``stem_pallas``) runs the stem, conv1 +
-bn1 + ReLU + maxpool, through the CUDA kernels of ``kernels/stem.py``. It
-keeps the parameter names, so state dicts load either way.
+JAX's two-stage decomposition (``stem_max_pool``), bitwise the same. The
+classifier path runs the stem, conv1 + bn1 + ReLU + maxpool, through the
+CUDA kernels of ``kernels/stem.py`` wherever they take the input (a
+float32 (B, 3, H, W) on the card, H and W multiples of 4, a model of 64
+filters on 3 channels), in train and in eval mode, forward and backward;
+any other input, and the features path, runs the plain stem.
+``stem_kernel=True`` (JAX ``stem_pallas``) forces the kernels,
+``stem_kernel=False`` the plain stem. The parameter names are the same
+either way, so state dicts load either way.
 
 ``dtype`` (JAX ``dtype``) is the compute dtype, float32 or bfloat16; the
 parameters, running statistics and optimizer state stay float32 (flax's
@@ -41,7 +46,8 @@ import torch.nn.functional as F
 
 from raw2logit_tpu_torch import resolve_device
 from raw2logit_tpu_torch.convert import resnet_name
-from raw2logit_tpu_torch.kernels.stem import stem_eval, stem_train
+from raw2logit_tpu_torch.kernels.stem import (check_stem_input, stem_eval,
+                                              stem_train)
 from raw2logit_tpu_torch.parallel import distributed
 
 
@@ -223,6 +229,27 @@ def stem_max_pool(y, two_stage=False):
     return F.max_pool2d(a, 2, 2)
 
 
+def on_card(x):
+    """Whether ``x`` is on the card, where the stem kernels launch (on the
+    CPU they would run their plain versions). The one device test of the
+    stem's routing."""
+    return x.is_cuda
+
+
+def stem_kernels_take(x, w):
+    """Whether the fused stem kernels take input ``x`` and conv weight
+    ``w`` on the card: ``kernels.stem.check_stem_input`` passes (a float32
+    (B, 3, H, W), H and W multiples of 4, and a float32 (64, 3, 7, 7)
+    weight on its device)."""
+    if not on_card(x):
+        return False
+    try:
+        check_stem_input(x, w)
+    except (ValueError, NotImplementedError):
+        return False
+    return True
+
+
 def _lecun_normal_(weight, generator):
     """flax's lecun_normal: truncated normal (+-2 sd) with variance
     1 / fan_in after truncation."""
@@ -244,13 +271,20 @@ class ResNet(nn.Module):
     for a state dict to be assigned to it (``load_state_dict(...,
     assign=True)``).
 
-    ``stem_kernel``: the classifier path (not ``return_features``, which
-    needs the pre-pool plane) runs the stem through the fused kernels,
-    ``StemTrain`` in train mode (bn1's running statistics updated as
-    ``FlaxBatchNorm2d`` does) and ``stem_eval`` in eval mode, whose
-    backward raises. It needs 64 filters, 3 input channels, a float32
-    input and H, W multiples of 4, and raises otherwise; with ``dtype``
-    bfloat16 it runs the kernels' bfloat16 forms.
+    ``stem_kernel``: which stem the classifier path (not
+    ``return_features``, which needs the pre-pool plane and always runs
+    the plain stem) takes. The fused kernels run ``StemTrain`` in train
+    mode (bn1's running statistics updated as ``FlaxBatchNorm2d`` does)
+    and ``stem_eval`` in eval mode, whose backward runs the same backward
+    kernels with bn1's running statistics held constant; with ``dtype``
+    bfloat16 they run their bfloat16 forms. ``None`` (the default)
+    chooses by the input: the kernels where ``stem_kernels_take(x,
+    conv1.weight)`` (on the card, a float32 (B, 3, H, W) with H, W
+    multiples of 4, and a model of 64 filters on 3 input channels), else
+    the plain stem, so that on the CPU the default is the plain stem.
+    ``True`` forces the kernels (their plain versions on the CPU) and
+    raises on a model or an input they cannot take; ``False`` forces the
+    plain stem.
 
     ``dtype``: the compute dtype, float32 or bfloat16 (module docstring);
     parameters and statistics stay float32, the logits are float32.
@@ -261,7 +295,7 @@ class ResNet(nn.Module):
 
     def __init__(self, block_cls=BasicBlock, stage_sizes=(2, 2, 2, 2),
                  num_classes=2, num_filters=64, in_channels=3, device=None,
-                 generator=None, stem_kernel=False, dtype=torch.float32,
+                 generator=None, stem_kernel=None, dtype=torch.float32,
                  pool_two_stage=False):
         super().__init__()
         if stem_kernel and (num_filters != 64 or in_channels != 3):
@@ -314,6 +348,15 @@ class ResNet(nn.Module):
             for block in layer:
                 block.zero_init_last_bn()
 
+    def runs_fused_stem(self, x, return_features=False):
+        """Whether ``forward(x, return_features)`` runs the fused stem
+        (``stem_kernel``)."""
+        if return_features:
+            return False
+        if self.stem_kernel is not None:
+            return bool(self.stem_kernel)
+        return stem_kernels_take(x, self.conv1.weight)
+
     def _fused_stem(self, x):
         bn = self.bn1
         if not self.training:
@@ -327,7 +370,7 @@ class ResNet(nn.Module):
 
     def forward(self, x, return_features=False, depth=5):
         feats = [x]
-        if self.stem_kernel and not return_features:
+        if self.runs_fused_stem(x, return_features):
             y = self._fused_stem(x)
         else:
             y = F.relu(self.bn1(self.conv1(x)))
@@ -351,7 +394,7 @@ def _weights_path(model, weights_dir):
 
 def resnet_model(model="resnet18", pretrained=False, in_channels=3,
                  fc_out_features=2, dtype=torch.float32, weights_dir="weights",
-                 device=None, generator=None, stem_kernel=False):
+                 device=None, generator=None, stem_kernel=None):
     """Factory mirroring the JAX ``resnet_model``. ``pretrained`` requires
     converted ImageNet weights at ``<weights_dir>/<model>.npz`` (the JAX
     package's ``tools/convert_torchvision.py`` writes them on a host that

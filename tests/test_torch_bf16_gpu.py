@@ -187,7 +187,8 @@ def test_bf16_resnet_launches_the_bf16_forms(cuda):  # noqa: F811
     x = torch.randn(8, 3, 64, 64, device=cuda, generator=gen)
     model = ResNet(stage_sizes=(1, 1), num_classes=9, device=cuda,
                    stem_kernel=True, dtype=torch.bfloat16)
-    ref = ResNet(stage_sizes=(1, 1), num_classes=9, device=cuda)
+    ref = ResNet(stage_sizes=(1, 1), num_classes=9, device=cuda,
+                 stem_kernel=False)
     ref.load_state_dict(model.state_dict())
     xg = x.clone().requires_grad_(True)
     seen = launched(lambda: model.train()(xg).square().sum().backward())

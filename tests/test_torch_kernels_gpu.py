@@ -15,13 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BWD_F64_PARAM, RES_TOL, SSIM_GRAD_REL, SSIM_SHAPES,
-                        SSIM_VALUE_REL, SSIM_WEIGHTS, STEM_ACT_TOL,
-                        STEM_GRAD_TOL, VARIANT_TOL, bn_agreement, bn_cotangent,
+from chip_smoke import (BWD_F64_PARAM, BWD_PARAM, CLF_GRAD_TOL, LOSS_TOL,
+                        RES_TOL, SEED, SSIM_GRAD_REL, SSIM_SHAPES,
+                        SSIM_VALUE_REL, SSIM_WEIGHTS, STATS_TOL, STEM_ACT_TOL,
+                        STEM_GRAD_TOL, TRAIN_LR, VARIANT_TOL, adv_config,
+                        adv_copy, adv_setup, bn_agreement, bn_cotangent,
                         bn_like_pair, bwd_agreement, grad_agreement,
-                        kernel_tolerance, l2_rel, max_rel, processor,
-                        smooth_mosaics, ssim_agreement, stem_agreement,
-                        stem_input, stem_params, witness)
+                        grads_and_stats, kernel_tolerance, l2_rel, max_rel,
+                        processor, smooth_mosaics, ssim_agreement,
+                        step_agreement, stem_agreement, stem_input,
+                        stem_params, train_copy, train_setup, witness)
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (
     SSIMAux, batch_stats, bn_backward_coef, bn_fold, fused_isp,
@@ -31,7 +34,10 @@ from raw2logit_tpu_torch.kernels import (
     stem_conv_dw, stem_conv_dw_reference, stem_conv_dx,
     stem_conv_dx_reference, stem_conv_reference, stem_eval, stem_pool_bwd,
     stem_train, unpack_grads)
-from raw2logit_tpu_torch.models import ResNet
+from raw2logit_tpu_torch.models import ResNet, resnet_model
+from raw2logit_tpu_torch.training import TrainConfig
+
+STEM_FNS = (stem_conv, stem_bnpool, stem_pool_bwd, stem_conv_dw, stem_conv_dx)
 
 # the camera of tests/test_pallas.py
 MILD_CAM = (
@@ -492,7 +498,7 @@ def test_stem_kernel_resnet_reaches_its_parameters_and_input(cuda):
     gradients near the plain stem's (relative L2 within STEM_GRAD_TOL: a
     pool argmax that a rounding difference moves shifts one cotangent);
     in eval mode under no_grad only the forward kernels run, and a
-    backward through it raises."""
+    backward through it runs the three backward kernels once each."""
     gen = torch.Generator(cuda).manual_seed(0)
     x = torch.randn(4, 3, 64, 64, device=cuda, generator=gen)
     grads = {}
@@ -519,8 +525,54 @@ def test_stem_kernel_resnet_reaches_its_parameters_and_input(cuda):
         model(x)
     assert (stem_conv.launches, stem_pool_bwd.launches) == (
         launches[0] + 1, launches[1])
-    with pytest.raises(NotImplementedError):
-        model(x.clone().requires_grad_(True)).sum().backward()
+    before = [fn.launches for fn in STEM_FNS]
+    model(x.clone().requires_grad_(True)).sum().backward()
+    assert [fn.launches - b for fn, b in zip(STEM_FNS, before)] == [1] * 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["joint", "forensics"])
+def test_cli_resnet_runs_the_stem_kernels(mode, cuda):
+    """The ResNet-18 as the CLI builds it (``resnet_model``, no
+    ``stem_kernel``) behind the fused ISP at B = 32, 256x256: a joint
+    train step launches each stem kernel once; the forensics step (the
+    classifier frozen in eval mode, so no dW) all but ``stem_conv_dw``.
+    The step agrees with the same step on the plain stem
+    (``stem_kernel=False``) within chip_smoke's flag on / off limits
+    (``phase_stem_train``): the loss within LOSS_TOL, the ISP's
+    gradients within BWD_PARAM, and in joint training the classifier's
+    gradients within CLF_GRAD_TOL and the running statistics within
+    STATS_TOL."""
+    if mode == "joint":
+        raw, y, proc, _ = train_setup(cuda, 32)
+        cfg, copy_step = TrainConfig(lr=TRAIN_LR), train_copy
+    else:
+        raw, y, proc, _ = adv_setup(cuda, 32)
+        cfg, copy_step = adv_config(), adv_copy
+    clf = resnet_model("resnet18", fc_out_features=9, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(SEED))
+    assert clf.stem_kernel is None
+    runs, launched = {}, {}
+    for flag in (None, False):
+        p, c, state, step = copy_step(cfg, proc, clf)
+        c.stem_kernel = flag
+        before = [fn.launches for fn in STEM_FNS]
+        loss = float(step(state, raw, y)["loss"])
+        launched[flag] = [fn.launches - b for fn, b in zip(STEM_FNS, before)]
+        runs[flag] = grads_and_stats(p, c), loss
+    assert launched == {None: [1, 1, 1, int(mode == "joint"), 1],
+                        False: [0] * 5}
+    if mode == "joint":
+        agree = step_agreement(runs[None], runs[False])
+        assert agree["clf_grad_max_rel_err"] <= CLF_GRAD_TOL, agree
+        assert agree["running_stats_max_rel_err"] <= STATS_TOL, agree
+    (isp_g, clf_g, _), loss = runs[None]
+    (isp_r, _, _), loss_r = runs[False]
+    assert abs(loss - loss_r) <= LOSS_TOL
+    assert mode == "joint" or all(g is None for g in clf_g.values())
+    for name, g in isp_g.items():
+        assert max_rel(g.double(), isp_r[name].double(), 1e-3) <= BWD_PARAM, \
+            name
 
 
 @pytest.mark.gpu

@@ -5,8 +5,10 @@ against its Pallas kernel in interpret mode (``raw2logit_tpu/pallas/
 stem.py``), ``StemTrain`` and ``stem_eval`` against ``stem_train`` (with
 its VJP) and ``stem_eval``, the port's ResNet-18 with ``stem_kernel`` against
 the flax ResNet with ``stem_pallas``, one train step with the flag against
-the JAX step, and what the flag refuses. Also that weights and checkpoints
-load with the flag on or off.
+the JAX step, and what the flag refuses. Also which stem the default
+routes an input to, the eval-mode stem's backward (JAX's has none)
+against float64 autograd through the plain eval stem, and that weights
+and checkpoints load with the flag on or off.
 
 All on the CPU, where the wrappers run their plain versions. Inputs come
 from numpy seeds (as ``tests/test_stem_pallas.py``) at (2, 32, 32) and
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from raw2logit_tpu.models import resnet as jresnet
 from raw2logit_tpu.pallas import stem as jstem
@@ -382,13 +385,6 @@ def test_train_step_with_stem_kernel_matches_jax():
 
 # --- what the flag refuses ---------------------------------------------------
 
-def _eval_backward():
-    model = resnet.ResNet(stage_sizes=(1,), device="cpu",
-                          stem_kernel=True).eval()
-    x = torch.zeros(1, 3, 32, 32, requires_grad=True)
-    model(x).sum().backward()
-
-
 RAISES = {
     "num_filters": (NotImplementedError, lambda: resnet.ResNet(
         num_filters=32, device="cpu", stem_kernel=True)),
@@ -403,7 +399,6 @@ RAISES = {
     "width": (ValueError, lambda: stem.stem_eval(
         torch.zeros(1, 3, 32, 34), torch.zeros(64, 3, 7, 7),
         *torch.ones(4, 64))),
-    "eval_mode_backward": (NotImplementedError, _eval_backward),
 }
 
 
@@ -423,6 +418,186 @@ def test_eval_mode_without_gradient_runs():
     assert model(x).shape == (1, 2)
     with torch.no_grad():
         assert model.requires_grad_(True)(x).shape == (1, 2)
+
+
+# --- which stem runs ---------------------------------------------------------
+
+# case: (ResNet keyword arguments, input shape, input dtype, on the card,
+# return_features, train mode, runs the fused stem). "card" cases patch
+# resnet.on_card, so that the CPU stands for the card: the fused stem
+# then runs the kernels' plain versions.
+ROUTES = {
+    "card_256_train": ({}, (1, 3, 256, 256), torch.float32, True, False,
+                       True, True),
+    "card_eval": ({}, (2, 3, 32, 48), torch.float32, True, False, False,
+                  True),
+    "card_bfloat16": ({"dtype": torch.bfloat16}, (2, 3, 32, 32),
+                      torch.float32, True, False, True, True),
+    "cpu": ({}, (2, 3, 32, 32), torch.float32, False, False, True, False),
+    "height_30": ({}, (1, 3, 30, 32), torch.float32, True, False, True,
+                  False),
+    "width_34": ({}, (1, 3, 32, 34), torch.float32, True, False, False,
+                 False),
+    "float64": ({}, (1, 3, 32, 32), torch.float64, True, False, True, False),
+    "return_features": ({}, (1, 3, 32, 32), torch.float32, True, True, True,
+                        False),
+    "filters_32": ({"num_filters": 32}, (1, 3, 32, 32), torch.float32, True,
+                   False, True, False),
+    "in_channels_4": ({"in_channels": 4}, (1, 4, 32, 32), torch.float32,
+                      True, False, True, False),
+    "forced_on_cpu": ({"stem_kernel": True}, (1, 3, 32, 32), torch.float32,
+                      False, False, False, True),
+    "forced_off_card": ({"stem_kernel": False}, (1, 3, 32, 32),
+                        torch.float32, True, False, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_stem_routes_by_its_input(case, monkeypatch):
+    """The default ``stem_kernel=None`` runs the fused stem on the card
+    for a float32 (B, 3, H, W) with H, W multiples of 4 on a 64-filter,
+    3-channel model, in train and eval mode and in bfloat16; the plain
+    stem on the CPU, on other shapes, dtypes and widths, and on the
+    features path, without an error. ``True`` and ``False`` force their
+    stems."""
+    kwargs, shape, dtype, card, features, train, fused = ROUTES[case]
+    monkeypatch.setattr(resnet, "on_card", lambda x: card)
+    calls = []
+    for name in ("stem_train", "stem_eval"):
+        fn = getattr(resnet, name)
+        monkeypatch.setattr(resnet, name, lambda *a, _fn=fn, **k: (
+            calls.append(_fn), _fn(*a, **k))[1])
+    model = resnet.ResNet(stage_sizes=(1,), device="cpu", **kwargs)
+    model = model.to(dtype).train(train)
+    x = torch.randn(shape, dtype=dtype, generator=torch.Generator()
+                    .manual_seed(0))
+    assert model.runs_fused_stem(x, features) == fused
+    with torch.no_grad():
+        out = model(x, return_features=True, depth=2) if features \
+            else model(x)
+    assert calls == ([stem.stem_train if train else stem.stem_eval]
+                     if fused else [])
+    if features:
+        assert out[1].shape[2:] == (shape[2] // 2, shape[3] // 2)
+    else:
+        assert out.shape == (shape[0], 2) and bool(torch.isfinite(out).all())
+
+
+# --- the eval-mode stem's backward -----------------------------------------
+
+def exact_stem_inputs(shape, seed):
+    """x of small integers, constant over 16x16 blocks, and w of
+    multiples of 1/64: every product and sum of the conv is exact in
+    float32, in bfloat16's products and in float64, so each precision
+    computes the same act, and the positions inside a block tie in the
+    pooling windows (three quarters of the windows with a positive
+    maximum at 32x32 and 32x48)."""
+    b, h, wd = shape
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, (b, 3, h // 16, wd // 16)).repeat(16, 2).repeat(
+        16, 3)
+    w = rng.integers(-8, 9, (64, 3, 7, 7)) / 64
+    return t(x), t(w)
+
+
+# case: (input, shape, compute dtype, frozen model): "random" is
+# stem_inputs' normal draws, "exact" is exact_stem_inputs'. The frozen
+# model is forensics': no parameter needs a gradient, only x does.
+EVAL_BWD = {
+    "square": ("random", (2, 32, 32), torch.float32, False),
+    "wide": ("random", (2, 32, 48), torch.float32, False),
+    "ties": ("exact", (2, 32, 32), torch.float32, False),
+    "frozen": ("random", (2, 32, 48), torch.float32, True),
+    "bfloat16_ties": ("exact", (2, 32, 48), torch.bfloat16, False),
+}
+# measured on the CPU, over each gradient's largest magnitude: float32
+# within 3.1e-7 (d_x 2.5e-7, dW 3.1e-7, dgamma 9.7e-8, dbeta 3.5e-8);
+# bfloat16 d_x, dW and dbeta equal, dgamma 9e-8 (on exact inputs the
+# roundings land alike; what is left is float32 against float64 sums)
+EVAL_GRAD_TOL = 1e-5
+
+
+def plain_eval_stem(x, w, gamma, beta, mean, var, eps=1e-5):
+    """The plain eval-mode stem: conv, batch norm with the running
+    statistics, ReLU, the 3x3/2 max pool."""
+    n = F.batch_norm(F.conv2d(x, w, stride=2, padding=3), mean, var, gamma,
+                     beta, False, 0.0, eps)
+    return resnet.stem_max_pool(F.relu(n))
+
+
+def rounded_eval_stem_grads(x, w, gamma, beta, mean, var, d_pooled, dtype):
+    """(d_x, dW, dgamma, dbeta) of ``plain_eval_stem`` for ``d_pooled``, by
+    autograd in float64. In bfloat16 autograd runs piece by piece with the
+    rounded plain forms between the pieces, where the kernels' bfloat16
+    forms round: x and w before the conv, act as stored, d_n as stored
+    (dgamma and dbeta from the unrounded d_n), and d_a."""
+    r = functools.partial(stem.rounded, dtype=dtype)
+    x, w, gamma, beta, mean, var, d_pooled = (
+        v.double() for v in (r(x), r(w), gamma, beta, mean, var, d_pooled))
+    leaves = [v.requires_grad_(True) for v in (x, w, gamma, beta)]
+    if dtype == torch.float32:
+        return torch.autograd.grad(plain_eval_stem(*leaves, mean, var),
+                                   leaves, d_pooled)
+    act = F.conv2d(x, w, stride=2, padding=3)
+    act_s = r(act.detach()).requires_grad_(True)
+    n = F.batch_norm(act_s, mean, var, gamma, beta, False, 0.0, 1e-5)
+    n_leaf = n.detach().requires_grad_(True)
+    d_n, = torch.autograd.grad(resnet.stem_max_pool(F.relu(n_leaf)), n_leaf,
+                               d_pooled)
+    d_gamma, d_beta = torch.autograd.grad(n, (gamma, beta), d_n,
+                                          retain_graph=True)
+    d_a, = torch.autograd.grad(n, act_s, r(d_n))
+    d_x, d_w = torch.autograd.grad(act, (x, w), r(d_a))
+    return d_x, d_w, d_gamma, d_beta
+
+
+@pytest.mark.parametrize("case", sorted(EVAL_BWD))
+def test_eval_stem_backward_matches_plain_autograd(case):
+    """An eval-mode ResNet with ``stem_kernel=True`` (the kernels' plain
+    versions on the CPU): the gradients of x, conv1 and bn1 (``_StemEval``
+    's backward) against autograd through the plain eval stem on the same
+    pooled cotangent, in float64 (bfloat16: the rounded plain forms); the
+    running statistics do not move; a frozen model gives x alone a
+    gradient."""
+    kind, shape, dtype, frozen = EVAL_BWD[case]
+    b, h, wd = shape
+    x, w, gamma, beta, mean, var = port_inputs(stem_inputs(shape, seed=8))
+    if kind == "exact":
+        x, w = exact_stem_inputs(shape, seed=9)
+    model = resnet.ResNet(stage_sizes=(1,), device="cpu", stem_kernel=True,
+                          dtype=dtype)
+    with torch.no_grad():
+        for p, v in ((model.conv1.weight, w), (model.bn1.weight, gamma),
+                     (model.bn1.bias, beta), (model.bn1.running_mean, mean),
+                     (model.bn1.running_var, var)):
+            p.copy_(v)
+    model.eval().requires_grad_(not frozen)
+    seen = {}
+    model.layer1.register_forward_pre_hook(
+        lambda _, args: seen.update(pooled=args[0]))
+    xg = x.clone().requires_grad_(True)
+    logits = model(xg)
+    seen["pooled"].register_hook(lambda g: seen.update(d_pooled=g))
+    logits.square().sum().backward()
+    want = rounded_eval_stem_grads(x, w, gamma, beta, mean, var,
+                                   seen["d_pooled"], dtype)
+    got = (xg.grad, model.conv1.weight.grad, model.bn1.weight.grad,
+           model.bn1.bias.grad)
+    for name, g, v in zip(("d_x", "d_w", "d_gamma", "d_beta"), got, want):
+        if frozen and name != "d_x":
+            assert g is None, name
+        else:
+            assert rel_err(g, v.numpy()) < EVAL_GRAD_TOL, (name,
+                                                            rel_err(g, v))
+    assert torch.equal(model.bn1.running_mean, mean)
+    assert torch.equal(model.bn1.running_var, var)
+    if kind == "exact":  # ties planted among positive window maxima
+        taps = stem.window_taps(F.relu(F.batch_norm(
+            F.conv2d(x.double(), w.double(), stride=2, padding=3),
+            mean.double(), var.double(), gamma.double(), beta.double(),
+            False, 0.0, 1e-5)))
+        best = taps.max(0).values
+        assert ((taps == best).sum(0)[best > 0] > 1).double().mean() > 0.5
 
 
 # --- weights and checkpoints -------------------------------------------------
