@@ -6,13 +6,16 @@ of each of the port's kernels, and the model FLOPs of a step.
 the yardstick). ``KERNEL_PATTERNS`` are the patterns that find each
 kernel's records in a profiler trace (template instances of
 ``raw2logit_tpu_torch/csrc/*.cu``). The model FLOPs are counted from the
-shapes alone: a conv or linear layer does 2 * MACs in the forward, as
-many again for its input gradient, and as many again for its weight
-gradient where those weights train; batch norms, activations, pools and
-the optimizer are not counted, and recomputed work never is.
+shapes alone, each model kind's MACs by its reference file
+(``reference/kinds/<kind>.py``): a conv or linear layer does 2 * MACs in
+the forward, as many again for its input gradient, and as many again for
+its weight gradient where those weights train; batch norms, activations,
+pools and the optimizer are not counted, and recomputed work never is.
 """
 
 import re
+
+from h100_bench import spec
 
 # Published peaks (NVIDIA data sheets): device-memory bytes/s, non-tensor
 # float32 operations/s and dense bfloat16 tensor-core operations/s; the
@@ -90,87 +93,11 @@ def kernel_bound_s(kernel, elements, kind):
     return max(elements * bytes_pe / bw, elements * ops_pe / ops)
 
 
-# ---------------------------------------------------------------------------
-# model MACs from shapes
-
-
-def _conv_out(n, k, s, flax_same, pad):
-    """Output size of a conv along one axis: flax SAME is ceil(n / s);
-    otherwise the explicit symmetric ``pad``."""
-    if flax_same:
-        return -(-n // s)
-    return (n + 2 * pad - k) // s + 1
-
-
-RESNET_STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
-
-
-def resnet_layers(arch, height, width, num_classes=None, depth=None):
-    """[(MACs per image, trains-its-weights flag is left to the caller)]
-    of every conv and linear layer of a BasicBlock ResNet on a (3,
-    height, width) input: the 7x7/2 stem conv, each block's two 3x3 convs
-    and its 1x1 projection, and the ``fc`` head when ``num_classes`` is
-    given. ``depth`` (the U-Net++ encoder's) keeps the stages a
-    ``depth``-deep features path runs. Returns (MAC list, the features'
-    (channels, h, w) from the stem's pre-pool plane on)."""
-    macs = []
-    h, w = _conv_out(height, 7, 2, False, 3), _conv_out(width, 7, 2, False, 3)
-    macs.append(3 * 64 * 49 * h * w)
-    feats = [(64, h, w)]
-    h, w = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1  # 3x3/2 max pool
-    stages = RESNET_STAGES[arch]
-    if depth is not None:
-        stages = stages[:max(depth - 1, 0)]
-    c = 64
-    for i, blocks in enumerate(stages):
-        f = 64 * 2 ** i
-        for j in range(blocks):
-            s = 2 if i > 0 and j == 0 else 1
-            ho, wo = _conv_out(h, 3, s, True, 0), _conv_out(w, 3, s, True, 0)
-            macs.append(c * f * 9 * ho * wo)
-            macs.append(f * f * 9 * ho * wo)
-            if s != 1 or c != f:
-                macs.append(c * f * ho * wo)
-            c, h, w = f, ho, wo
-        feats.append((c, h, w))
-    if num_classes is not None:
-        macs.append(c * num_classes)
-    return macs, feats
-
-
-def unetpp_layers(encoder, height, width, decoder=(256, 128, 64, 32, 16),
-                  classes=1):
-    """MACs per image of every conv of the U-Net++ (encoder, then the
-    nested decoder's conv blocks, then the 3x3 head)."""
-    depth = len(decoder)
-    macs, feats = resnet_layers(encoder, height, width, depth=depth)
-    channels = {(0, 0): 3}
-    size = {0: (height, width)}
-    for i, (c, h, w) in enumerate(feats, start=1):
-        channels[i, 0] = c
-        size[i] = (h, w)
-    rows = list(decoder)[::-1]
-    for j in range(1, depth + 1):
-        for i in range(depth + 1 - j):
-            n_in = (sum(channels[i, k] for k in range(j))
-                    + channels[i + 1, j - 1])
-            h, w = size[i]
-            macs.append(n_in * rows[i] * 9 * h * w)
-            macs.append(rows[i] * rows[i] * 9 * h * w)
-            channels[i, j] = rows[i]
-    macs.append(rows[0] * classes * 9 * height * width)
-    return macs
-
-
 def model_macs(config):
     """MACs per image of the configuration's task model at its image
-    size."""
-    m, size = config["model"], config["image_size"]
-    if m["kind"] == "resnet":
-        return sum(resnet_layers(m["arch"], size, size,
-                                 num_classes=m["num_classes"])[0])
-    return sum(unetpp_layers(m["encoder"], size, size,
-                             tuple(m["decoder_channels"]), m["classes"]))
+    size, as its model kind counts them (``reference/kinds/<kind>.py``)."""
+    model, size = config["model"], config["image_size"]
+    return spec.model_kind(model["kind"]).macs(model, size, size)
 
 
 def isp_ops(config, kernels):

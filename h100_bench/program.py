@@ -1,14 +1,17 @@
 """The system under test: the port (``raw2logit_tpu_torch``), built the
-way its training CLI and its ``Predictor`` build it. This is the only
-module of the benchmark that imports the port; the benchmark takes from
-it the modules, the train step, the predictor and the kernels' launch
-counters, and hands it the seeded weights and inputs.
+way its training CLI and its ``Predictor`` build it. With the task-model
+builders (``builders/<kind>.py``) this is the only module of the
+benchmark that imports the port; the benchmark takes from it the modules,
+the train step, the predictor and the kernels' launch counters, and hands
+it the seeded weights and inputs.
 """
 
+from h100_bench import spec
 from raw2logit_tpu_torch.isp import ParametrizedProcessing
 from raw2logit_tpu_torch.kernels import (fused_isp, fused_isp_bwd,
-                                         fused_isp_train, ssim_aux_value_grad)
-from raw2logit_tpu_torch.models import UNetPlusPlus, resnet_model
+                                         fused_isp_train, ssim_aux_value_grad,
+                                         stem_bnpool, stem_conv, stem_conv_dw,
+                                         stem_conv_dx, stem_pool_bwd)
 from raw2logit_tpu_torch.serving import Predictor
 from raw2logit_tpu_torch.training.core import (TrainConfig,
                                                create_train_state,
@@ -20,7 +23,12 @@ _COUNTERS = {"fused_isp_fwd": (fused_isp, "launches"),
              "fused_isp_fwd_train": (fused_isp_train, "launches"),
              "fused_isp_bwd_res": (fused_isp_bwd, "launches_res"),
              "fused_isp_bwd": (fused_isp_bwd, "launches"),
-             "ssim_aux": (ssim_aux_value_grad, "launches")}
+             "ssim_aux": (ssim_aux_value_grad, "launches"),
+             "stem_conv_fwd": (stem_conv, "launches"),
+             "stem_bnpool": (stem_bnpool, "launches"),
+             "stem_pool_bwd": (stem_pool_bwd, "launches"),
+             "stem_conv_dw": (stem_conv_dw, "launches"),
+             "stem_conv_dx": (stem_conv_dx, "launches")}
 
 
 def launches():
@@ -43,16 +51,10 @@ def build_isp(config, traffic, device):
 
 
 def build_model(config, device):
-    """The task model as the CLI builds it (cuDNN's stem: no flag of the
-    CLI reaches the stem kernels)."""
-    m = config["model"]
-    if m["kind"] == "resnet":
-        return resnet_model(model=m["arch"], fc_out_features=m["num_classes"],
-                            device=device)
-    return UNetPlusPlus(encoder_name=m["encoder"],
-                        encoder_depth=len(m["decoder_channels"]),
-                        decoder_channels=tuple(m["decoder_channels"]),
-                        in_channels=3, classes=m["classes"], device=device)
+    """The task model as the CLI builds it, by the builder of the
+    configuration's model kind (``spec.model_builder``)."""
+    model = config["model"]
+    return spec.model_builder(model["kind"]).build(model, device)
 
 
 def train_config(config, traffic):

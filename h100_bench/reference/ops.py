@@ -1,5 +1,6 @@
-"""Convolution and linear layers of the reference, in float32 or, for the
-control, with TF32's rounding of their operands."""
+"""The layers of the reference and their state-dict entries: convolution
+and linear layers in float32 or, for the control, with TF32's rounding of
+their operands; flax "SAME" padding; batch norm over dicts of tensors."""
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +67,49 @@ def linear(x, w, b, tf32):
     if tf32:
         return _Tf32Linear.apply(x, w, b)
     return F.linear(x, w, b)
+
+
+BN_EPS = 1e-5
+
+
+def conv_spec(out, name, c_out, c_in, k):
+    """Append a bias-free k x k conv's weight to a spec."""
+    out.append((f"{name}.weight", (c_out, c_in, k, k), "conv"))
+
+
+def bn_spec(out, name, c):
+    """Append a batch norm's entries to a spec, in ``state_dict()``
+    order."""
+    out += [(f"{name}.weight", (c,), "bn_weight"),
+            (f"{name}.bias", (c,), "bn_bias"),
+            (f"{name}.running_mean", (c,), "running_mean"),
+            (f"{name}.running_var", (c,), "running_var"),
+            (f"{name}.num_batches_tracked", (), "count")]
+
+
+def batch_norm(p, name, x, train):
+    """Batch norm ``name`` of ``p``: the batch's biased statistics in
+    train mode, the running statistics in eval mode (eps 1e-5)."""
+    if train:
+        return F.batch_norm(x, None, None, p[f"{name}.weight"],
+                            p[f"{name}.bias"], True, 0.0, BN_EPS)
+    return F.batch_norm(x, p[f"{name}.running_mean"],
+                        p[f"{name}.running_var"], p[f"{name}.weight"],
+                        p[f"{name}.bias"], False, 0.0, BN_EPS)
+
+
+def same_pad(x, k, s):
+    """flax SAME padding of NCHW ``x`` for a k x k conv of stride s: the
+    output is ceil(n / s), the extra pixel padded at the end."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def conv_same(p, name, x, s, tf32):
+    """Conv ``name`` of ``p`` on ``x`` at stride ``s``, padded flax
+    SAME."""
+    w = p[f"{name}.weight"]
+    return conv2d(same_pad(x, w.shape[-1], s), w, tf32, stride=s)

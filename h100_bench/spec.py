@@ -3,9 +3,12 @@ checkout names the cells and metrics; a cell's files are
 ``h100_bench/cells/<cell>.json`` (its limits), its configuration's
 ``h100_bench/configs/<config>.json`` and its traffic mix's
 ``h100_bench/traffic/<mix>.json``, whose ``kind`` names the generator
-``h100_bench/traffic/<kind>.py``; a per-layer metric is
-``h100_bench/metrics/<metric>.py``. A new cell, configuration, mix or
-metric is a new file and a new entry; no file here needs an edit."""
+``h100_bench/traffic/<kind>.py``; the configuration's ``model.kind``
+names the task model's reference ``h100_bench/reference/kinds/<kind>.py``
+and its builder in the port ``h100_bench/builders/<kind>.py``; a
+per-layer metric is ``h100_bench/metrics/<metric>.py``. A new cell,
+configuration, mix, model kind or metric is a new file and a new entry;
+no file here needs an edit."""
 
 import importlib.util
 import json
@@ -13,6 +16,11 @@ import os
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
+
+# model kind -> the benchmark directory its files come from: that of the
+# last ``Cell`` whose configuration uses it, else this one
+_KIND_BENCH = {}
+_KIND_PARTS = (("reference", "kinds"), ("builders",))
 
 
 def _load(path):
@@ -37,6 +45,8 @@ class Cell:
         self.traffic = _load(os.path.join(bench, "traffic",
                                           f"{self.entry['traffic']}.json"))
         self.file = _load(os.path.join(bench, "cells", f"{name}.json"))
+        _kind_paths(self.config["model"]["kind"], bench)
+        _KIND_BENCH[self.config["model"]["kind"]] = bench
         self.limits = self.file["limits"]
         self.end_to_end = [m for m in manifest["end_to_end"]
                            if self._reports(m, ())]
@@ -57,6 +67,37 @@ class Cell:
     def metric_reader(self, name):
         return _module(os.path.join(self.bench, "metrics", f"{name}.py"),
                        f"h100_bench.metrics.{name}").read
+
+
+def _kind_paths(kind, bench):
+    """(reference file, builder file) of model kind ``kind`` under
+    ``bench``; a kind that lacks either fails here, naming both."""
+    paths = [os.path.join(bench, *part, f"{kind}.py")
+             for part in _KIND_PARTS]
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if missing:
+        raise LookupError(f"model kind {kind!r} is the reference "
+                          f"{paths[0]} and the builder {paths[1]}; "
+                          f"missing: {', '.join(missing)}")
+    return paths
+
+
+def _kind_module(kind, part):
+    return _module(_kind_paths(kind, _KIND_BENCH.get(kind, BENCH))[part],
+                   ".".join(("h100_bench", *_KIND_PARTS[part], kind)))
+
+
+def model_kind(kind):
+    """The reference module of model kind ``kind``: ``spec(model)``,
+    ``forward(model, p, x, train, tf32)``, ``macs(model, height,
+    width)``, in plain PyTorch."""
+    return _kind_module(kind, 0)
+
+
+def model_builder(kind):
+    """The builder module of model kind ``kind``: ``build(model,
+    device)``, the port's module."""
+    return _kind_module(kind, 1)
 
 
 def _module(path, name):

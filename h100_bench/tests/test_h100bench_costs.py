@@ -10,6 +10,20 @@ from h100_bench.reference.models import model_forward, model_spec
 from h100_bench.tests import tiny
 
 SIZE = 64
+# the cells' task models, and ResNet-50 as a classifier and as the
+# U-Net++ encoder in their configurations' place
+RESNET50 = {"kind": "resnet", "arch": "resnet50", "num_classes": 9}
+UNETPP_RESNET50 = {"kind": "unetpp", "encoder": "resnet50",
+                   "decoder_channels": [256, 128, 64, 32, 16], "classes": 1}
+MODELS = {"cls_train": ("cls_train", None), "seg_train": ("seg_train", None),
+          "resnet50": ("cls_train", RESNET50),
+          "unetpp_resnet50": ("seg_train", UNETPP_RESNET50)}
+
+
+def _config(name):
+    cell, model = MODELS[name]
+    config = dict(tiny.cell(cell).config, image_size=SIZE)
+    return config if model is None else dict(config, model=model)
 
 
 def _counted(config, batch, train_weights, input_grad):
@@ -27,16 +41,16 @@ def _counted(config, batch, train_weights, input_grad):
     return counter.get_total_flops()
 
 
-@pytest.mark.parametrize("name", ["cls_train", "seg_train"])
+@pytest.mark.parametrize("name", list(MODELS))
 def test_forward_flops_match_torchs_counter(name):
-    config = dict(tiny.cell(name).config, image_size=SIZE)
+    config = _config(name)
     assert (_counted(config, 2, False, False)
             == 2 * 2 * costs.model_macs(config))
 
 
-@pytest.mark.parametrize("name", ["cls_train", "seg_train"])
+@pytest.mark.parametrize("name", list(MODELS))
 def test_train_flops_are_three_forwards(name):
-    config = dict(tiny.cell(name).config, image_size=SIZE)
+    config = _config(name)
     assert (_counted(config, 2, True, True)
             == 3 * 2 * 2 * costs.model_macs(config))
 
@@ -61,10 +75,31 @@ def test_step_flops_add_the_isp_and_ssim_kernels():
     assert costs.step_flops(config, serve) == 3 * (2 * macs + 174 * pixels)
 
 
+def _macs(model, size):
+    return costs.model_macs({"image_size": size, "model": model})
+
+
 def test_resnet18_at_224_is_the_published_count():
     # ResNet-18 at 224x224: 1.81 GMACs (He et al.; torchvision's 1.81)
-    macs = sum(costs.resnet_layers("resnet18", 224, 224, 1000)[0])
+    macs = _macs({"kind": "resnet", "arch": "resnet18", "num_classes": 1000},
+                 224)
     assert 1.80e9 < macs < 1.83e9
+
+
+@pytest.mark.parametrize("size,classes,macs", [(224, 1000, 4_089_184_256),
+                                               (256, 9, 5_338_318_848)])
+def test_resnet50_is_the_published_count(size, classes, macs):
+    # ResNet-50 at 224x224: torchvision's published 4.09 GMACs
+    model = dict(RESNET50, num_classes=classes)
+    assert _macs(model, size) == macs
+
+
+def test_the_cells_model_macs_stand():
+    # step_mfu of the four cells reads as it did before the model kinds
+    assert costs.model_macs(tiny.cell("cls_train").config
+                            | {"image_size": 256}) == 2_368_737_792
+    assert costs.model_macs(tiny.cell("seg_train").config
+                            | {"image_size": 256}) == 17_166_237_696
 
 
 def test_kernel_bounds_and_names():

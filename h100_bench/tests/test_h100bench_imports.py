@@ -1,10 +1,11 @@
 """What the benchmark loads and where it refuses to run: nothing that
 ``run.py`` runs loads JAX, its libraries or the JAX package (top-level
 names compared whole: the port's name begins with the JAX package's);
-the reference loads nothing of the port; the harness reads nothing of
-the repository's older benchmarks; ``run.py`` exits non-zero and prints
-no result without a CUDA device, and in a directory that holds only
-``BENCHMARK.json`` and the benchmark's files."""
+the reference, its model kinds included, loads nothing of the port, and
+only ``program.py`` and the builders import it; the harness reads
+nothing of the repository's older benchmarks; ``run.py`` exits non-zero
+and prints no result without a CUDA device, and in a directory that
+holds only ``BENCHMARK.json`` and the benchmark's files."""
 
 import ast
 import glob
@@ -37,7 +38,8 @@ def test_run_loads_no_jax():
             "h100_bench.calibrate; from h100_bench import spec; "
             "c = spec.Cell('cls_train'); c.kind_module(); "
             "[c.metric_reader(m['name']) for m in c.per_layer]; "
-            "spec.Cell('cls_serve').kind_module()")
+            "spec.Cell('cls_serve').kind_module(); "
+            "[spec.model_builder(k) for k in ('resnet', 'unetpp')]")
     loaded = _loaded_after(code)
     assert "raw2logit_tpu_torch" in loaded
     assert not loaded & set(FORBIDDEN), loaded & set(FORBIDDEN)
@@ -46,7 +48,9 @@ def test_run_loads_no_jax():
 def test_the_reference_loads_nothing_of_the_port():
     code = ("import h100_bench.reference.step, h100_bench.reference.isp, "
             "h100_bench.reference.models, h100_bench.reference.ops, "
-            "h100_bench.costs, h100_bench.checks, h100_bench.data")
+            "h100_bench.costs, h100_bench.checks, h100_bench.data; "
+            "from h100_bench import spec; "
+            "[spec.model_kind(k) for k in ('resnet', 'unetpp')]")
     loaded = _loaded_after(code)
     assert not loaded & {"raw2logit_tpu_torch", *FORBIDDEN}
 
@@ -66,8 +70,9 @@ def test_the_harness_reads_no_older_benchmark():
                 top = name.split(".")[0]
                 assert top not in ("benchmarks", "bench", "tools",
                                    "chip_smoke", *FORBIDDEN), (path, name)
-        if os.path.basename(path) != "program.py" and \
-                os.sep + "tests" + os.sep not in path:
+        rel = os.path.relpath(path, spec.BENCH)
+        if rel != "program.py" and not rel.startswith(("tests" + os.sep,
+                                                       "builders" + os.sep)):
             with open(path) as fh:
                 assert "raw2logit_tpu_torch" not in "".join(
                     ln for ln in fh if ln.startswith(("import", "from"))), path
